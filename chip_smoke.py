@@ -1,0 +1,430 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (ripor_tpu_torch) on one CUDA card, end to end.
+
+    python3 chip_smoke.py
+
+Phases, top to bottom; any failed check raises, so the exit code is
+nonzero and no result line is printed:
+
+  1. build the hand-written CUDA kernels from ripor_tpu_torch/csrc/;
+  2. hold each kernel against its plain PyTorch version on the card at the
+     main path's shapes (t5-base widths, B=8, N=1000, L=12, Mc in {8, 32};
+     exact bf16, int8 and int4 rows) and time kernel, plain version and,
+     for the gathers, one PyTorch advanced-indexing call (a yardstick the
+     port never uses);
+  3. agreement on a small input: the port's beam search through the
+     kernels on the card against its plain path on the CPU (the path the
+     CPU tests hold against the JAX package);
+  4. the main path: RetrievalEngine at ripor_base(M=32, K=256) with random
+     bf16 weights from a seed, a 100,000-doc random-code corpus, beam =
+     topk = 1000, with int4, exact bf16 and int8 caches; launch counters
+     are zeroed just before and read just after, and every kernel must
+     have launched;
+  5. inside phase 4's int4 run, one B=8 decode under torch.profiler:
+     device time by kernel and the device's busy share of the wall time.
+
+Prints the card's name and power limit (nvidia-smi), per-phase lines, then
+a ``{"kernels": [...]}`` line and, last, the contract line
+``{"ok": true, "device": {...}}``. Needs one CUDA card; exits nonzero
+without one, and outside a checkout of the repository.
+"""
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
+F32_FLOPS = 67e12                # H100 SXM float32 outside tensor cores
+B, N, L, F, H = 8, 1000, 12, 768, 12
+M, K = 32, 256
+N_DOCS = 100_000
+SEED = 0
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def cuda_ms(fn, reps):
+    """Mean device time of fn() over reps launches (CUDA events), after
+    one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes, flops=0.0):
+    """(bound_ms, bound_by): the larger of bytes over HBM rate and f32
+    operations over the f32 rate."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def random_cache(quant, Mc, g):
+    """A [B, N, L, Mc, RW] cache of valid rows: random bf16 rows, or random
+    int8/int4 payload bytes with per-head exponents in [-6, -1]."""
+    import torch
+    from ripor_tpu_torch.ops import SCALE_COLS
+    if quant is None:
+        return torch.randn(B, N, L, Mc, 2 * F, generator=g, device="cuda",
+                           dtype=torch.bfloat16)
+    payload = 2 * F if quant == "int8" else F
+    c = torch.randint(-128, 128, (B, N, L, Mc, payload + SCALE_COLS),
+                      generator=g, device="cuda", dtype=torch.int8)
+    c[..., payload:payload + 2 * H] = torch.randint(
+        -6, 0, (B, N, L, Mc, 2 * H), generator=g, device="cuda",
+        dtype=torch.int8)
+    c[..., payload + 2 * H:] = 0
+    return c
+
+
+def kernel_checks(results):
+    """Phase 2: every kernel against its plain version at main-path
+    shapes; returns per-kernel records (measured at int4, Mc=32, the
+    main path's default cache, unless noted)."""
+    import torch
+    from ripor_tpu_torch.ops import (beam_gather_rows,
+                                     beam_gather_rows_plain,
+                                     reorder_cache_all,
+                                     reorder_cache_all_plain,
+                                     step_attention_seq,
+                                     step_attention_seq_plain)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    bidx = torch.arange(B, device="cuda")[:, None]
+    for Mc in (8, 32):
+        for quant in ("int4", "int8", None):
+            tag = f"{quant or 'bf16'} Mc={Mc}"
+            cache = random_cache(quant, Mc, g)
+            RW = cache.shape[-1]
+            src = torch.randint(0, N, (B, N), generator=g, device="cuda",
+                                dtype=torch.int32)
+            uniq = sum(int(torch.unique(src[b]).numel()) for b in range(B))
+            slab = L * Mc * RW * cache.element_size()
+            t = Mc - 1
+
+            # K1
+            kvg = (torch.randint(-128, 128, (B, N, L * RW), generator=g,
+                                 device="cuda", dtype=torch.int8)
+                   if quant else
+                   torch.randn(B, N, L * RW, generator=g, device="cuda",
+                               dtype=torch.bfloat16))
+            dst = torch.empty_like(cache)
+            ref = reorder_cache_all_plain(kvg, cache, torch.empty_like(cache),
+                                          src, t)
+            out = reorder_cache_all(kvg, cache, dst, src, t)
+            torch.cuda.synchronize()
+            check(torch.equal(out, ref), f"reorder_cache_all {tag}")
+            del ref
+            rec = dict(
+                ms=cuda_ms(lambda: reorder_cache_all(kvg, cache, dst, src, t),
+                           5),
+                plain_ms=cuda_ms(lambda: reorder_cache_all_plain(
+                    kvg, cache, dst, src, t), 3),
+                library_ms=cuda_ms(lambda: cache[bidx, src.long()], 3),
+                max_abs_err=0.0)
+            rec["bound_ms"], rec["bound_by"] = bound(
+                uniq * slab + B * N * slab + nbytes(kvg, src))
+            results.append(("reorder_cache_all", tag, rec))
+            del dst, kvg
+
+            # K2 (layer 5), with the QFUSE rows for quantized caches
+            q = torch.randn(B, N, F, generator=g, device="cuda",
+                            dtype=torch.bfloat16)
+            kv_new = torch.randn(B, N, 2 * F, generator=g, device="cuda",
+                                 dtype=torch.bfloat16)
+            bias_hist = torch.randn(Mc, H, generator=g, device="cuda")
+            bias_hist[t:] = -1e9
+            bias_new = torch.randn(1, H, generator=g, device="cuda")
+            args = (q, kv_new, cache, 5, bias_hist, bias_new, H, quant)
+            got = step_attention_seq(*args)
+            want = step_attention_seq_plain(*args)
+            torch.cuda.synchronize()
+            if quant:
+                (got, got_q), (want, want_q) = got, want
+                check(torch.equal(got_q, want_q),
+                      f"step_attention_seq emit_quant rows {tag}")
+            err = (got.float() - want.float()).abs().max().item()
+            check(torch.allclose(got.float(), want.float(), rtol=2e-2,
+                                 atol=2e-2), f"step_attention_seq {tag}: "
+                                             f"max abs err {err}")
+            rec = dict(ms=cuda_ms(lambda: step_attention_seq(*args), 10),
+                       plain_ms=cuda_ms(lambda: step_attention_seq_plain(
+                           *args), 3),
+                       library_ms=None, max_abs_err=err)
+            outs = nbytes(got) + (B * N * RW if quant else 0)
+            rec["bound_ms"], rec["bound_by"] = bound(
+                nbytes(q, kv_new, bias_hist, bias_new) + outs
+                + B * N * Mc * RW * cache.element_size(),
+                4.0 * B * N * (Mc + 1) * F)
+            results.append(("step_attention_seq", tag, rec))
+            del q, kv_new, got, want
+
+            # K3 over this step's rows in the layout the main path gathers
+            # (QFUSE int8 rows, or exact bf16 K|V rows)
+            x = cache[:, :, :, 0].reshape(B, N, L * RW).contiguous()
+            ref = beam_gather_rows_plain(x, src)
+            check(torch.equal(beam_gather_rows(x, src), ref),
+                  f"beam_gather_rows {tag}")
+            rec = dict(ms=cuda_ms(lambda: beam_gather_rows(x, src), 20),
+                       plain_ms=cuda_ms(lambda: beam_gather_rows_plain(x, src),
+                                        5),
+                       library_ms=cuda_ms(lambda: x[bidx, src.long()], 5),
+                       max_abs_err=0.0)
+            row = L * RW * x.element_size()
+            rec["bound_ms"], rec["bound_by"] = bound(
+                uniq * row + B * N * row + nbytes(src))
+            results.append(("beam_gather_rows", tag, rec))
+            del x, ref, cache
+            torch.cuda.empty_cache()
+            for name, tg, r in results[-3:]:
+                print("kernel_check", json.dumps({"kernel": name,
+                                                  "case": tg, **r}))
+
+
+def small_agreement():
+    """Phase 3: beam search through the kernels on the card vs the plain
+    path on the CPU, tiny model, f32."""
+    import torch
+    from ripor_tpu_torch.decode.beam import NEG_INF, make_beam_search_fn
+    from ripor_tpu_torch.models import RiporModel, init_params, ripor_small
+    from ripor_tpu_torch.trie import (build_trie, succinct_tables,
+                                      tables_to_torch)
+    cfg = ripor_small(M=8, K=16)
+    sd = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    rng = np.random.default_rng(SEED)
+    tables = succinct_tables(build_trie(rng.integers(0, 16, (300, 8)), 16))
+    ids = rng.integers(3, 500, (3, 12)).astype(np.int32)
+    mask = np.ones_like(ids)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = RiporModel(cfg, device=dev)
+        model.load_state_dict(sd)
+        for quant in (None, "int8", "int4"):
+            fn = make_beam_search_fn(cfg, 16, dtype=torch.float32,
+                                     kv_cache_quant=quant, device=dev)
+            out[dev, quant] = [a.cpu().numpy() for a in fn(
+                model, ids, mask, tables_to_torch(tables, dev))]
+    for quant in (None, "int8", "int4"):
+        (s0, c0, st0), (s1, c1, st1) = out["cpu", quant], out["cuda", quant]
+        live = s0 > NEG_INF / 2
+        check(live.all(), "small agreement: every beam live")
+        check(np.array_equal(c0[:, 0], c1[:, 0]),
+              f"small agreement {quant}: top beam differs")
+        if quant is None:
+            check(np.array_equal(c0, c1) and np.array_equal(st0, st1),
+                  "small agreement: exact-cache codes/states differ")
+            check(np.allclose(s0, s1, rtol=1e-4, atol=1e-4),
+                  f"small agreement: scores differ by "
+                  f"{np.abs(s0 - s1).max()}")
+        print("small_agreement", json.dumps({
+            "cache": quant or "f32", "top_beam_equal": True,
+            "max_abs_score_diff": float(np.abs(s0 - s1).max())}))
+
+
+def where_time_goes(eng, ids, mask, unprofiled_s):
+    """Phase 5: one B=8 decode under torch.profiler — device time by
+    kernel and the device's busy share of the wall time (the union of
+    kernel intervals over the host clock around the call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        out = eng._fn(eng._model, ids, mask, eng._tables)
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+    del out
+    kern = sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, reach = 0.0, float("-inf")
+    by_name = {}
+    for start, end, name in kern:
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+        by_name[name] = by_name.get(name, 0.0) + (end - start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    print("profile", json.dumps({
+        "cache": "int4", "batch": B, "steps": M,
+        "wall_ms": wall_s * 1e3, "unprofiled_wall_ms": unprofiled_s * 1e3,
+        "device_events": len(kern),
+        "device_busy_ms": busy_us / 1e3 if kern else "not measured",
+        "device_busy_share": busy_us / 1e6 / wall_s if kern
+        else "not measured",
+        # the profiler slows the host, not the kernels: busy time over the
+        # same decode's wall time without the profiler
+        "device_busy_share_unprofiled": busy_us / 1e6 / unprofiled_s if kern
+        else "not measured",
+        "top": [{"kernel": n[:100], "ms": us / 1e3} for n, us in top]}))
+
+
+def main_path(launches):
+    """Phase 4: serve beam-1000 retrieval at t5-base through
+    RetrievalEngine. Returns launch counts of this phase."""
+    import torch
+    from ripor_tpu_torch.data.tokenizer import HashTokenizer, tokenize_queries
+    from ripor_tpu_torch.decode.beam import NEG_INF
+    from ripor_tpu_torch.models import init_params, ripor_base
+    from ripor_tpu_torch.ops import KERNEL_LAUNCHES
+    from ripor_tpu_torch.serve import RetrievalEngine, ServeConfig
+    from ripor_tpu_torch.trie import build_trie
+
+    cfg = ripor_base(M=M, K=K)
+    t0 = time.monotonic()
+    sd = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                     device="cuda", dtype=torch.bfloat16)
+    rng = np.random.default_rng(SEED)
+    codes = rng.integers(0, K, (N_DOCS, M))
+    trie = build_trie(codes, K)
+    docids = [f"doc{i}" for i in range(N_DOCS)]
+    words = [f"w{i}" for i in range(5000)]
+    queries = [" ".join(rng.choice(words, rng.integers(3, 12)))
+               for _ in range(40)]
+    tok = HashTokenizer()
+    print("main_path_setup", json.dumps({
+        "seconds": time.monotonic() - t0, "docs": N_DOCS,
+        "groups": int(trie.num_groups), "trie_nodes": int(trie.num_internal)}))
+    valid = set(map(tuple, trie.unique_codes.tolist()))
+
+    for k in KERNEL_LAUNCHES:
+        KERNEL_LAUNCHES[k] = 0
+    for quant, n_sync, n_async in (("int4", 16, 16), (None, 8, 0),
+                                   ("int8", 8, 0)):
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(KERNEL_LAUNCHES)
+        t0 = time.monotonic()
+        eng = RetrievalEngine(
+            cfg, sd, tok, trie, docids,
+            ServeConfig(num_beams=1000, topk=1000, batch_sizes=(1, 8),
+                        kv_cache_quant=quant), device="cuda")
+        warm_s = time.monotonic() - t0
+        qs = queries[:n_sync]
+        t0 = time.monotonic()
+        res = eng.retrieve_batch(qs)
+        sync_s = time.monotonic() - t0
+        if n_async:
+            eng.start()
+            try:
+                t0 = time.monotonic()
+                futs = [eng.submit(q) for q in queries[n_sync:n_sync + n_async]]
+                res += [f.result(timeout=600) for f in futs]
+                async_s = time.monotonic() - t0
+            finally:
+                eng.stop()
+        for r in res:
+            check(len(r) == 1000, f"{quant}: {len(r)} results, not 1000")
+            s = [v for _, v in r]
+            check(all(np.isfinite(s)), f"{quant}: non-finite score")
+            check(all(a >= b for a, b in zip(s, s[1:])),
+                  f"{quant}: scores increase")
+        # the beams behind one batch: live codes must be trie paths
+        # (timed: one B=8 batch, host clock around work ending in a copy
+        # to the host)
+        ids, mask = tokenize_queries(tok, queries[:B], 64)
+        t0 = time.monotonic()
+        scores, bcodes, state = (a.cpu().numpy() for a in eng._fn(
+            eng._model, ids, mask, eng._tables))
+        decode_s = time.monotonic() - t0
+        live = scores > NEG_INF / 2
+        check(live.all(), f"{quant}: dead beams at beam 1000")
+        groups = -2 - state
+        check((groups >= 0).all(), f"{quant}: live beam off a leaf")
+        check(np.array_equal(trie.unique_codes[groups], bcodes),
+              f"{quant}: beam codes differ from their trie group")
+        check(all(tuple(c) in valid for c in bcodes.reshape(-1, M)[:4000]),
+              f"{quant}: beam code not in the corpus")
+        if quant == "int4":
+            where_time_goes(eng, ids, mask, decode_s)
+        rec = {"cache": quant or "bf16", "warmup_s": warm_s,
+               "sync_queries": n_sync, "sync_s": sync_s,
+               "sync_qps": n_sync / sync_s,
+               "decode_b8_s": decode_s,
+               "ms_per_decode_step_b8": decode_s / M * 1e3,
+               "max_memory_allocated_gb":
+                   torch.cuda.max_memory_allocated() / 1e9,
+               "launches": {k: KERNEL_LAUNCHES[k] - before[k]
+                            for k in KERNEL_LAUNCHES}}
+        if n_async:
+            rec.update(async_queries=n_async, async_s=async_s,
+                       async_qps=n_async / async_s)
+        print("main_path", json.dumps(rec))
+        del eng
+        torch.cuda.empty_cache()
+    launches.update(KERNEL_LAUNCHES)
+    for k, v in launches.items():
+        check(v > 0, f"kernel {k} never launched on the main path")
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    try:
+        from ripor_tpu_torch.ops import _build
+    except ImportError as e:
+        print(f"chip_smoke: run it from a checkout of the repository ({e})",
+              file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi.splitlines()[0])
+    print("torch", torch.__version__, "cuda", torch.version.cuda,
+          torch.cuda.get_device_name(0))
+    t_all = time.monotonic()
+
+    t0 = time.monotonic()
+    _build.build_all()
+    print("build", json.dumps({"seconds": time.monotonic() - t0,
+                               **_build.BUILD_INFO}))
+
+    results = []
+    kernel_checks(results)
+    small_agreement()
+    launches = {}
+    main_path(launches)
+
+    sources = {"reorder_cache_all": "ripor_tpu/ops/megarow.py:288",
+               "step_attention_seq": "ripor_tpu/ops/megarow.py:666",
+               "beam_gather_rows": "ripor_tpu/ops/beam_gather.py:47"}
+    kernels = []
+    for name, replaces in sources.items():
+        recs = [r for n, _, r in results if n == name]
+        main = next(r for n, tg, r in results
+                    if n == name and tg == "int4 Mc=32")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"ripor_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "case": "int4 Mc=32"})
+    print("total_s", time.monotonic() - t_all)
+    print(smi.splitlines()[0])
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

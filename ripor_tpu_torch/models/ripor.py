@@ -1,0 +1,121 @@
+"""RiporModel — the generative retriever, in PyTorch.
+
+Port of ripor_tpu/models/ripor.py: a T5 encoder-decoder whose decoder
+reads and scores per-position codebooks [M, K, d] (one tensor, so the
+per-position heads are one gather / matmul over the position axis).
+smtids are pure code arrays [c1..cm] in [0, K); the start token is the
+learned ``start_embed``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ripor_tpu_torch.models.config import RiporConfig
+from ripor_tpu_torch.models.t5 import CrossKV, Decoder, Encoder
+
+
+class RiporModel(nn.Module):
+    """Weights are allocated uninitialized on ``device``; fill them with
+    ``load_state_dict`` (models/convert.py: ``params_from_jax`` or
+    ``init_params``). Inference only: parameters do not require grad."""
+
+    def __init__(self, cfg: RiporConfig, dtype=torch.float32, device=None):
+        super().__init__()
+        t5 = cfg.t5
+        self.cfg = cfg
+        self.dtype = dtype
+        kw = dict(dtype=dtype, device=device)
+        self.shared = nn.Embedding(t5.vocab_size, t5.d_model, **kw)
+        self.encoder = Encoder(t5, **kw)
+        self.decoder = Decoder(t5, **kw)
+        self.codebooks = nn.Parameter(
+            torch.empty(cfg.M, cfg.K, t5.d_model, **kw))
+        if not cfg.shared_output_input_embeds:
+            self.output_codebooks = nn.Parameter(
+                torch.empty(cfg.M, cfg.K, t5.d_model, **kw))
+        self.start_embed = nn.Parameter(torch.empty(t5.d_model, **kw))
+        self.requires_grad_(False)
+
+    def _out_books(self):
+        return (self.codebooks if self.cfg.shared_output_input_embeds
+                else self.output_codebooks)
+
+    # ---- encoder ----
+
+    def encode(self, input_ids, attention_mask):
+        """Token ids -> encoder hidden states [B, S, d]."""
+        return self.encoder(self.shared(input_ids), attention_mask)
+
+    # ---- decoder-side embedding / scoring ----
+
+    def decoder_inputs_from_codes(self, codes: torch.Tensor) -> torch.Tensor:
+        """Shift-right decoder inputs for codes [B, m] -> [B, m, d]:
+        position 0 is the start embedding, position i > 0 is
+        codebooks[i-1, codes[:, i-1]]."""
+        b, m = codes.shape
+        books = self.codebooks
+        pos = torch.arange(m - 1, device=codes.device)[None, :]
+        prev = books[pos, codes[:, :m - 1]]               # [B, m-1, d]
+        start = self.start_embed[None, None, :].expand(b, 1, -1)
+        return torch.cat([start, prev], dim=1)
+
+    def doc_embeds(self, codes: torch.Tensor) -> torch.Tensor:
+        """Per-position output embeddings of codes [B, m] -> [B, m, d]."""
+        m = codes.shape[1]
+        pos = torch.arange(m, device=codes.device)[None, :]
+        return self._out_books()[pos, codes]
+
+    def lm_logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """hidden [B, m, d] -> float32 logits [B, m, K]."""
+        m = hidden.shape[1]
+        return torch.einsum("bmd,mkd->bmk", hidden.float(),
+                            self._out_books()[:m].float())
+
+    def _maybe_scale(self, hidden):
+        if self.cfg.scaleup_output_hidden:
+            return hidden * (self.cfg.t5.d_model ** -0.5)
+        return hidden
+
+    # ---- full forwards ----
+
+    def forward(self, input_ids, attention_mask, codes):
+        """Seq2seq forward: decoder hidden states [B, m, d]."""
+        enc = self.encode(input_ids, attention_mask)
+        dec_in = self.decoder_inputs_from_codes(codes)
+        return self._maybe_scale(self.decoder(dec_in, enc, attention_mask))
+
+    def forward_logits(self, input_ids, attention_mask, codes):
+        """Teacher-forced logits [B, m, K] (float32)."""
+        return self.lm_logits(self(input_ids, attention_mask, codes))
+
+    def rerank_score(self, input_ids, attention_mask, codes):
+        """Sequential dot-product score sum_i <h_i, E[i][c_i]> -> [B]."""
+        hidden = self(input_ids, attention_mask, codes)
+        return (hidden.float() * self.doc_embeds(codes).float()).sum(
+            dim=(-2, -1))
+
+    # ---- decode path (decode/beam.py) ----
+
+    def decode_step_megarow(self, tokens, cache_src, cache_dst, src, kvg,
+                            cross_kv: CrossKV, enc_bias, self_bias, t: int,
+                            emit_quant: Optional[str] = None):
+        """One beam decode step over the megarow cache
+        (Decoder.decode_step_megarow). tokens: [B, N] codes chosen at step
+        t-1 (ignored at t == 0). Returns (logits [B, N, K] float32 for
+        position t, new cache, kv_new)."""
+        b, n = tokens.shape
+        if t == 0:
+            x = self.start_embed[None, None, :].expand(b, n, -1)
+        else:
+            x = self.codebooks[t - 1][tokens]             # [B, N, d]
+        hidden, new_cache, kv_new = self.decoder.decode_step_megarow(
+            x, cache_src, cache_dst, src, kvg, cross_kv, enc_bias, self_bias,
+            t, emit_quant=emit_quant)
+        hidden = self._maybe_scale(hidden)
+        logits = hidden.float() @ self._out_books()[t].float().T
+        if self.cfg.apply_log_softmax:
+            logits = torch.log_softmax(logits, dim=-1)
+        return logits, new_cache, kv_new

@@ -1,0 +1,204 @@
+"""T5 encoder / decoder stacks in PyTorch, with the megarow decode step.
+
+Port of ripor_tpu/models/t5.py: the full-sequence encoder and decoder, and
+the decoder's beam decode step over the beam-major megarow KV cache
+[B, N, L, Mc, RW] (ops/megarow.py). Beams are a first-class axis and
+cross-attention reads the unexpanded encoder K/V [B, S, H, D].
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ripor_tpu_torch.models.config import T5Config
+from ripor_tpu_torch.models.layers import (
+    NEG_INF,
+    Attention,
+    FeedForward,
+    RelativePositionBias,
+    RMSNorm,
+    causal_bias,
+    padding_bias,
+)
+from ripor_tpu_torch.ops.attend_reorder import SCALE_COLS
+from ripor_tpu_torch.ops.megarow import reorder_cache_all, step_attention_seq
+
+CrossKV = List[Tuple[torch.Tensor, torch.Tensor]]
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, cfg: T5Config, dtype=torch.float32, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        eps = cfg.layer_norm_epsilon
+        self.attn_norm = RMSNorm(cfg.d_model, eps, **kw)
+        self.attn = Attention(cfg, **kw)
+        self.ffn_norm = RMSNorm(cfg.d_model, eps, **kw)
+        self.ffn = FeedForward(cfg, **kw)
+
+    def forward(self, x, bias):
+        x = x + self.attn(self.attn_norm(x), bias=bias)
+        return x + self.ffn(self.ffn_norm(x))
+
+
+class Encoder(nn.Module):
+    """T5 encoder over already-embedded inputs."""
+
+    def __init__(self, cfg: T5Config, dtype=torch.float32, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.rel_bias = RelativePositionBias(cfg, bidirectional=True, **kw)
+        self.layers = nn.ModuleList(EncoderLayer(cfg, **kw)
+                                    for _ in range(cfg.num_layers))
+        self.final_norm = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon, **kw)
+
+    def forward(self, embeds, mask):
+        L = embeds.shape[1]
+        bias = self.rel_bias(L, L) + padding_bias(mask)
+        x = embeds
+        for layer in self.layers:
+            x = layer(x, bias)
+        return self.final_norm(x)
+
+
+def _step_cross_attention(q, enc_k, enc_v, enc_bias, dtype):
+    """Beam-shared cross-attention: q [B, N, H, D] x enc [B, S, H, D];
+    enc_bias [B, S] additive. The encoder K/V are broadcast over beams,
+    never expanded per beam."""
+    scores = torch.einsum("bnhd,bshd->bnhs", q.float(), enc_k.float())
+    scores = scores + enc_bias[:, None, None, :].float()
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    return torch.einsum("bnhs,bshd->bnhd", probs, enc_v)
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, cfg: T5Config, dtype=torch.float32, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        kw = dict(dtype=dtype, device=device)
+        eps = cfg.layer_norm_epsilon
+        self.self_attn_norm = RMSNorm(cfg.d_model, eps, **kw)
+        self.self_attn = Attention(cfg, **kw)
+        self.cross_attn_norm = RMSNorm(cfg.d_model, eps, **kw)
+        self.cross_attn = Attention(cfg, **kw)
+        self.ffn_norm = RMSNorm(cfg.d_model, eps, **kw)
+        self.ffn = FeedForward(cfg, **kw)
+
+    def forward(self, x, enc, self_bias, cross_bias):
+        x = x + self.self_attn(self.self_attn_norm(x), bias=self_bias)
+        x = x + self.cross_attn(self.cross_attn_norm(x), kv_input=enc,
+                                bias=cross_bias)
+        return x + self.ffn(self.ffn_norm(x))
+
+    def cross_kv(self, enc):
+        """Cross-attention K/V from the encoder output (once per query)."""
+        return self.cross_attn.project_kv(enc)
+
+    def step_qkv(self, x):
+        """Self-attention projections for one decode position, flat:
+        x [B, N, d] -> q [B, N, F], kv [B, N, 2F] (K heads then V heads)."""
+        h = self.self_attn_norm(x)
+        sa = self.self_attn
+        return sa.q(h), torch.cat([sa.k(h), sa.v(h)], dim=-1)
+
+    def step_finish_with_attn(self, x, attn_flat, enc_k, enc_v, enc_bias):
+        """Residual + output projection of the self-attention result
+        [B, N, inner], then cross-attention and FFN."""
+        x = x + self.self_attn.out_flat(attn_flat)
+        cq = self.cross_attn.project_q(self.cross_attn_norm(x))
+        attn = _step_cross_attention(cq, enc_k, enc_v, enc_bias, self.dtype)
+        x = x + self.cross_attn.out(attn)
+        return x + self.ffn(self.ffn_norm(x))
+
+
+class Decoder(nn.Module):
+    """T5 decoder over already-embedded inputs, full-sequence and megarow
+    step paths (keeps the final layer norm, as the reference does)."""
+
+    def __init__(self, cfg: T5Config, dtype=torch.float32, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        kw = dict(dtype=dtype, device=device)
+        self.rel_bias = RelativePositionBias(cfg, bidirectional=False, **kw)
+        self.layers = nn.ModuleList(DecoderLayer(cfg, **kw)
+                                    for _ in range(cfg.num_decoder_layers))
+        self.final_norm = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon, **kw)
+
+    def forward(self, embeds, enc, enc_mask):
+        L = embeds.shape[1]
+        self_bias = self.rel_bias(L, L) + causal_bias(L, embeds.device)
+        cross_bias = padding_bias(enc_mask)
+        x = embeds
+        for layer in self.layers:
+            x = layer(x, enc, self_bias, cross_bias)
+        return self.final_norm(x)
+
+    # ---- decode path ----
+
+    def full_self_bias(self, max_len: int) -> torch.Tensor:
+        """[H, M, M] float32 relpos + causal bias, computed once per call."""
+        dev = self.rel_bias.rel_embedding.device
+        bias = self.rel_bias(max_len, max_len)[0]
+        return bias + causal_bias(max_len, dev)[0, 0]
+
+    def precompute_cross_kv(self, enc) -> CrossKV:
+        return [layer.cross_kv(enc) for layer in self.layers]
+
+    def init_cache_megarow(self, batch: int, num_beams: int, max_len: int,
+                           quantized: "bool | str" = False) -> torch.Tensor:
+        """Zeroed beam-major K|V-merged cache [B, N, L, Mc, RW]. Exact rows
+        are [2F] in the compute dtype; ``quantized`` "int8"/True gives int8
+        rows [2F + SCALE_COLS], "int4" packed rows [F + SCALE_COLS].
+
+        Zeroed, not empty: masked slots are multiplied by probability 0,
+        and 0 * NaN (a bf16 garbage pattern) or an int8 garbage exponent
+        (2^127) would poison the sum."""
+        cfg = self.cfg
+        dev = self.rel_bias.rel_embedding.device
+        if quantized:
+            payload = (cfg.inner_dim if quantized == "int4"
+                       else 2 * cfg.inner_dim)
+            return torch.zeros(batch, num_beams, cfg.num_decoder_layers,
+                               max_len, payload + SCALE_COLS,
+                               dtype=torch.int8, device=dev)
+        return torch.zeros(batch, num_beams, cfg.num_decoder_layers, max_len,
+                           2 * cfg.inner_dim, dtype=self.dtype, device=dev)
+
+    def decode_step_megarow(self, x, cache_src, cache_dst, src, kvg,
+                            cross_kv: CrossKV, enc_bias, self_bias_full,
+                            t: int, emit_quant: Optional[str] = None):
+        """One decode step over the megarow cache: K1 completes the pending
+        beam reorder (and the slot t-1 insert) from ``cache_src`` into
+        ``cache_dst``, then each layer runs K2 over its reordered rows.
+
+        x: [B, N, d] position-t input embeddings (current beams);
+        src: [B, N] int32 current beam -> previous row; kvg: [B, N, L*RW]
+        step t-1's rows in current beam order; t: Python int.
+        Returns (hidden [B, N, d], cache_dst, kv_new [B, N, L*w]) where
+        kv_new stacks this step's rows per layer: exact [2F] rows, or with
+        ``emit_quant`` the cache-layout rows K2 emitted (QFUSE)."""
+        cfg = self.cfg
+        cache_len = cache_src.shape[3]
+        bias_row = self_bias_full[:, t, :cache_len]             # [H, Mc]
+        key_pos = torch.arange(cache_len, device=x.device)
+        bias_hist = (bias_row + torch.where(key_pos < t, 0.0, NEG_INF)
+                     [None, :]).T.contiguous()                 # [Mc, H]
+        bias_new = bias_row[:, t][None, :].contiguous()         # [1, H]
+        cache = reorder_cache_all(kvg, cache_src, cache_dst, src, t)
+        kvnews = []
+        for l, (layer, (enc_k, enc_v)) in enumerate(zip(self.layers,
+                                                         cross_kv)):
+            q, kvf = layer.step_qkv(x)
+            attn = step_attention_seq(q, kvf, cache, l, bias_hist, bias_new,
+                                      cfg.num_heads, emit_quant=emit_quant)
+            if emit_quant:
+                attn, kvf = attn
+            kvnews.append(kvf)
+            x = layer.step_finish_with_attn(x, attn, enc_k, enc_v, enc_bias)
+        kv_new = torch.stack(kvnews, dim=2).reshape(x.shape[0], x.shape[1],
+                                                    -1)
+        return self.final_norm(x), cache, kv_new
