@@ -8,20 +8,29 @@ nonzero and no result line is printed:
 
   1. build the hand-written CUDA kernels from ripor_tpu_torch/csrc/;
   2. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes (t5-base widths, B=8, N=1000, L=12, Mc in {8, 32};
-     exact bf16, int8 and int4 rows) and time kernel, plain version and,
-     for the gathers, one PyTorch advanced-indexing call (a yardstick the
-     port never uses);
+     shapes its path gives it (t5-base widths, B=8, N=1000, L=12, Mc in
+     {8, 32}): K1-K3 with exact bf16, int8 and int4 rows; K4 with int4,
+     int8 (exact and pre-quantized kvg rows) and bf16 rows; K5 and K6 in
+     bf16. Time kernel, plain version and, for the gathers, one PyTorch
+     advanced-indexing call (a yardstick the port never uses);
   3. agreement on a small input: the port's beam search through the
      kernels on the card against its plain path on the CPU (the path the
-     CPU tests hold against the JAX package);
+     CPU tests hold against the JAX package), on the megarow and deferred
+     paths (exact, int8, int4 caches) and the non-deferred path;
   4. the main path: RetrievalEngine at ripor_base(M=32, K=256) with random
      bf16 weights from a seed, a 100,000-doc random-code corpus, beam =
-     topk = 1000, with int4, exact bf16 and int8 caches; launch counters
-     are zeroed just before and read just after, and every kernel must
-     have launched;
+     topk = 1000, on the megarow path with int4, exact bf16 and int8
+     caches; launch counters are zeroed just before and read just after,
+     and each megarow kernel (K1-K3) must have launched;
   5. inside phase 4's int4 run, one B=8 decode under torch.profiler:
-     device time by kernel and the device's busy share of the wall time.
+     device time by kernel and the device's busy share of the wall time;
+  6. the deferred per-layer path (make_beam_search_fn(..., megarow=False);
+     int4, int8 and bf16 caches) and the non-deferred path
+     (deferred=False; bf16) at phase 4's model, corpus and queries: one
+     B=8 search each, after one warm-up search, with phase 4's checks and
+     launch counters zeroed just before and read just after; two more
+     searches for the time (median of three), and the same profile as
+     phase 5.
 
 Prints the card's name and power limit (nvidia-smi), per-phase lines, then
 a ``{"kernels": [...]}`` line and, last, the contract line
@@ -75,28 +84,46 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def random_cache(quant, Mc, g):
-    """A [B, N, L, Mc, RW] cache of valid rows: random bf16 rows, or random
-    int8/int4 payload bytes with per-head exponents in [-6, -1]."""
+def random_rows(quant, lead, g):
+    """Valid cache rows [*lead, RW]: random bf16 rows, or random int8/int4
+    payload bytes with per-head exponents in [-6, -1]."""
     import torch
     from ripor_tpu_torch.ops import SCALE_COLS
     if quant is None:
-        return torch.randn(B, N, L, Mc, 2 * F, generator=g, device="cuda",
+        return torch.randn(*lead, 2 * F, generator=g, device="cuda",
                            dtype=torch.bfloat16)
     payload = 2 * F if quant == "int8" else F
-    c = torch.randint(-128, 128, (B, N, L, Mc, payload + SCALE_COLS),
+    c = torch.randint(-128, 128, (*lead, payload + SCALE_COLS),
                       generator=g, device="cuda", dtype=torch.int8)
     c[..., payload:payload + 2 * H] = torch.randint(
-        -6, 0, (B, N, L, Mc, 2 * H), generator=g, device="cuda",
+        -6, 0, (*lead, 2 * H), generator=g, device="cuda",
         dtype=torch.int8)
     c[..., payload + 2 * H:] = 0
     return c
 
 
-def kernel_checks(results):
-    """Phase 2: every kernel against its plain version at main-path
-    shapes; returns per-kernel records (measured at int4, Mc=32, the
-    main path's default cache, unless noted)."""
+def unique_sources(src):
+    """Distinct source rows per batch row: the slabs a gather must read."""
+    import torch
+    return sum(int(torch.unique(src[b]).numel()) for b in range(B))
+
+
+def attention_inputs(Mc, t, g):
+    """q [B, N, F], kv_new [B, N, 2F] (bf16) and the biases of step t
+    (slots >= t masked)."""
+    import torch
+    q = torch.randn(B, N, F, generator=g, device="cuda", dtype=torch.bfloat16)
+    kv_new = torch.randn(B, N, 2 * F, generator=g, device="cuda",
+                         dtype=torch.bfloat16)
+    bias_hist = torch.randn(Mc, H, generator=g, device="cuda")
+    bias_hist[t:] = -1e30
+    bias_new = torch.randn(1, H, generator=g, device="cuda")
+    return q, kv_new, bias_hist, bias_new
+
+
+def megarow_checks(results, g):
+    """Phase 2, megarow kernels K1-K3 against their plain versions at the
+    main path's shapes; appends (kernel, case, record) to results."""
     import torch
     from ripor_tpu_torch.ops import (beam_gather_rows,
                                      beam_gather_rows_plain,
@@ -104,16 +131,15 @@ def kernel_checks(results):
                                      reorder_cache_all_plain,
                                      step_attention_seq,
                                      step_attention_seq_plain)
-    g = torch.Generator(device="cuda").manual_seed(SEED)
     bidx = torch.arange(B, device="cuda")[:, None]
     for Mc in (8, 32):
         for quant in ("int4", "int8", None):
             tag = f"{quant or 'bf16'} Mc={Mc}"
-            cache = random_cache(quant, Mc, g)
+            cache = random_rows(quant, (B, N, L, Mc), g)
             RW = cache.shape[-1]
             src = torch.randint(0, N, (B, N), generator=g, device="cuda",
                                 dtype=torch.int32)
-            uniq = sum(int(torch.unique(src[b]).numel()) for b in range(B))
+            uniq = unique_sources(src)
             slab = L * Mc * RW * cache.element_size()
             t = Mc - 1
 
@@ -143,13 +169,7 @@ def kernel_checks(results):
             del dst, kvg
 
             # K2 (layer 5), with the QFUSE rows for quantized caches
-            q = torch.randn(B, N, F, generator=g, device="cuda",
-                            dtype=torch.bfloat16)
-            kv_new = torch.randn(B, N, 2 * F, generator=g, device="cuda",
-                                 dtype=torch.bfloat16)
-            bias_hist = torch.randn(Mc, H, generator=g, device="cuda")
-            bias_hist[t:] = -1e9
-            bias_new = torch.randn(1, H, generator=g, device="cuda")
+            q, kv_new, bias_hist, bias_new = attention_inputs(Mc, t, g)
             args = (q, kv_new, cache, 5, bias_hist, bias_new, H, quant)
             got = step_attention_seq(*args)
             want = step_attention_seq_plain(*args)
@@ -196,9 +216,142 @@ def kernel_checks(results):
                                                   "case": tg, **r}))
 
 
+def deferred_checks(results, g):
+    """Phase 2, K4 against its plain version: layer 5 of a [L, B, N, Mc,
+    RW] cache at t = Mc - 1 with write_back on, for int4, int8 (exact and
+    pre-quantized kvg rows) and bf16 caches. The written layer is
+    bit-equal, the attention within 2e-2."""
+    import torch
+    from ripor_tpu_torch.ops import (step_attend_reorder,
+                                     step_attend_reorder_plain)
+    for Mc in (8, 32):
+        for quant, kvg_q8 in (("int4", False), ("int8", False),
+                              ("int8", True), (None, False)):
+            tag = f"{quant or 'bf16'}{' kvg int8' if kvg_q8 else ''} Mc={Mc}"
+            cache = random_rows(quant, (L, B, N, Mc), g)
+            RW, esz = cache.shape[-1], cache.element_size()
+            t = Mc - 1
+            src = torch.randint(0, N, (B, N), generator=g, device="cuda",
+                                dtype=torch.int32)
+            kvg = (random_rows("int8", (B, N, L), g) if kvg_q8 else
+                   random_rows(None, (B, N, L), g)).reshape(B, N, -1)
+            q, kv_new, bias_hist, bias_new = attention_inputs(Mc, t, g)
+            dst, dst_plain = torch.empty_like(cache), torch.empty_like(cache)
+
+            def run(fn, out):
+                return fn(q, kv_new, kvg, cache, out, src, 5, t, bias_hist,
+                          bias_new, H)[0]
+
+            got = run(step_attend_reorder, dst)
+            want = run(step_attend_reorder_plain, dst_plain)
+            torch.cuda.synchronize()
+            check(torch.equal(dst[5], dst_plain[5]),
+                  f"step_attend_reorder cache_dst {tag}")
+            err = (got.float() - want.float()).abs().max().item()
+            check(torch.allclose(got.float(), want.float(), rtol=2e-2,
+                                 atol=2e-2), f"step_attend_reorder {tag}: "
+                                             f"max abs err {err}")
+            rec = dict(ms=cuda_ms(lambda: run(step_attend_reorder, dst), 10),
+                       plain_ms=cuda_ms(lambda: run(
+                           step_attend_reorder_plain, dst_plain), 3),
+                       library_ms=None, max_abs_err=err)
+            slab = Mc * RW * esz
+            rec["bound_ms"], rec["bound_by"] = bound(
+                unique_sources(src) * slab + B * N * slab
+                + nbytes(q, kv_new, src, bias_hist, bias_new, got)
+                + nbytes(kvg) // L, 4.0 * B * N * (Mc + 1) * F)
+            results.append(("step_attend_reorder", tag, rec))
+            print("kernel_check", json.dumps({
+                "kernel": "step_attend_reorder", "case": tag, **rec}))
+            del cache, dst, dst_plain, kvg, got, want
+            torch.cuda.empty_cache()
+
+
+def non_deferred_checks(results, g):
+    """Phase 2, K5 (layer 5, within 2e-2) and K6 (the non-deferred
+    reorder over the L*2*B planes with src tiled, bit-equal) against
+    their plain versions on a bf16 [L, 2, B, N, Mc, F] cache."""
+    import torch
+    from ripor_tpu_torch.ops import (beam_gather_update,
+                                     beam_gather_update_plain,
+                                     step_attention_fused,
+                                     step_attention_fused_plain)
+    for Mc in (8, 32):
+        tag = f"bf16 Mc={Mc}"
+        t = Mc - 1
+        cache = torch.randn(L, 2, B, N, Mc, F, generator=g, device="cuda",
+                            dtype=torch.bfloat16)
+        q, kv_new, bias_hist, bias_new = attention_inputs(Mc, t, g)
+        k_new = kv_new[..., :F].contiguous()
+        v_new = kv_new[..., F:].contiguous()
+        args = (q, k_new, v_new, cache, 5, bias_hist, bias_new, H)
+        got = step_attention_fused(*args)
+        want = step_attention_fused_plain(*args)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        check(torch.allclose(got.float(), want.float(), rtol=2e-2,
+                             atol=2e-2),
+              f"step_attention_fused {tag}: max abs err {err}")
+        rec = dict(ms=cuda_ms(lambda: step_attention_fused(*args), 10),
+                   plain_ms=cuda_ms(lambda: step_attention_fused_plain(
+                       *args), 3),
+                   library_ms=None, max_abs_err=err)
+        rec["bound_ms"], rec["bound_by"] = bound(
+            2 * B * N * Mc * F * cache.element_size()
+            + nbytes(q, k_new, v_new, bias_hist, bias_new, got),
+            4.0 * B * N * (Mc + 1) * F)
+        results.append(("step_attention_fused", tag, rec))
+        del got, want
+
+        G = L * 2 * B
+        flat = cache.view(G, N, Mc, F)
+        src = torch.randint(0, N, (B, N), generator=g, device="cuda",
+                            dtype=torch.int32)
+        src_rep = src.repeat(L * 2, 1)
+        kvg = torch.randn(G, N, F, generator=g, device="cuda",
+                          dtype=torch.bfloat16)
+        out, out_plain = torch.empty_like(flat), torch.empty_like(flat)
+        beam_gather_update(flat, kvg, src_rep, t, out)
+        beam_gather_update_plain(flat, kvg, src_rep, t, out_plain)
+        torch.cuda.synchronize()
+        check(torch.equal(out, out_plain), f"beam_gather_update {tag}")
+        del out_plain
+        gidx = torch.arange(G, device="cuda")[:, None]
+        lsrc = src_rep.long()
+        rec = dict(ms=cuda_ms(lambda: beam_gather_update(
+                       flat, kvg, src_rep, t, out), 10),
+                   plain_ms=cuda_ms(lambda: beam_gather_update_plain(
+                       flat, kvg, src_rep, t, out), 2),
+                   library_ms=cuda_ms(lambda: flat[gidx, lsrc], 2),
+                   max_abs_err=0.0)
+        slab = Mc * F * flat.element_size()
+        rec["bound_ms"], rec["bound_by"] = bound(
+            L * 2 * unique_sources(src) * slab + G * N * slab
+            + nbytes(kvg, src_rep))
+        results.append(("beam_gather_update", tag, rec))
+        for name, tg, r in results[-2:]:
+            print("kernel_check", json.dumps({"kernel": name, "case": tg,
+                                              **r}))
+        del cache, flat, out, kvg
+        torch.cuda.empty_cache()
+
+
+SMALL_RUNS = (                   # (path, make_beam_search_fn kwargs)
+    ("megarow", dict(kv_cache_quant=None)),
+    ("megarow", dict(kv_cache_quant="int8")),
+    ("megarow", dict(kv_cache_quant="int4")),
+    ("deferred", dict(megarow=False, kv_cache_quant=None)),
+    ("deferred", dict(megarow=False, kv_cache_quant="int8")),
+    ("deferred", dict(megarow=False, kv_cache_quant="int8",
+                      kvg_quant_xla=True)),
+    ("deferred", dict(megarow=False, kv_cache_quant="int4")),
+    ("non_deferred", dict(deferred=False)),
+)
+
+
 def small_agreement():
     """Phase 3: beam search through the kernels on the card vs the plain
-    path on the CPU, tiny model, f32."""
+    path on the CPU, tiny model, f32, on every path and cache."""
     import torch
     from ripor_tpu_torch.decode.beam import NEG_INF, make_beam_search_fn
     from ripor_tpu_torch.models import RiporModel, init_params, ripor_small
@@ -214,32 +367,38 @@ def small_agreement():
     for dev in ("cpu", "cuda"):
         model = RiporModel(cfg, device=dev)
         model.load_state_dict(sd)
-        for quant in (None, "int8", "int4"):
+        for i, (_, kw) in enumerate(SMALL_RUNS):
             fn = make_beam_search_fn(cfg, 16, dtype=torch.float32,
-                                     kv_cache_quant=quant, device=dev)
-            out[dev, quant] = [a.cpu().numpy() for a in fn(
+                                     device=dev, **kw)
+            out[dev, i] = [a.cpu().numpy() for a in fn(
                 model, ids, mask, tables_to_torch(tables, dev))]
-    for quant in (None, "int8", "int4"):
-        (s0, c0, st0), (s1, c1, st1) = out["cpu", quant], out["cuda", quant]
+    for i, (path, kw) in enumerate(SMALL_RUNS):
+        (s0, c0, st0), (s1, c1, st1) = out["cpu", i], out["cuda", i]
+        quant = kw.get("kv_cache_quant")
+        kvg = " kvg int8" if kw.get("kvg_quant_xla") else ""
+        tag = f"{path} {quant or 'f32'}{kvg}"
         live = s0 > NEG_INF / 2
-        check(live.all(), "small agreement: every beam live")
+        check(live.all(), f"small agreement {tag}: every beam live")
         check(np.array_equal(c0[:, 0], c1[:, 0]),
-              f"small agreement {quant}: top beam differs")
+              f"small agreement {tag}: top beam differs")
         if quant is None:
             check(np.array_equal(c0, c1) and np.array_equal(st0, st1),
-                  "small agreement: exact-cache codes/states differ")
+                  f"small agreement {tag}: exact-cache codes/states differ")
             check(np.allclose(s0, s1, rtol=1e-4, atol=1e-4),
-                  f"small agreement: scores differ by "
+                  f"small agreement {tag}: scores differ by "
                   f"{np.abs(s0 - s1).max()}")
         print("small_agreement", json.dumps({
-            "cache": quant or "f32", "top_beam_equal": True,
+            "path": path, "cache": quant or "f32",
+            "kvg_quant_xla": bool(kw.get("kvg_quant_xla")),
+            "top_beam_equal": True,
             "max_abs_score_diff": float(np.abs(s0 - s1).max())}))
 
 
-def where_time_goes(eng, ids, mask, unprofiled_s):
-    """Phase 5: one B=8 decode under torch.profiler — device time by
-    kernel and the device's busy share of the wall time (the union of
-    kernel intervals over the host clock around the call)."""
+def where_time_goes(label, search, unprofiled_s):
+    """Phases 5 and 6: one B=8 decode (``search()``) under
+    torch.profiler — device time by kernel and the device's busy share of
+    the wall time (the union of kernel intervals over the host clock
+    around the call)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -247,7 +406,7 @@ def where_time_goes(eng, ids, mask, unprofiled_s):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        out = eng._fn(eng._model, ids, mask, eng._tables)
+        out = search()
         torch.cuda.synchronize()
         wall_s = time.monotonic() - t0
     del out
@@ -261,7 +420,7 @@ def where_time_goes(eng, ids, mask, unprofiled_s):
         by_name[name] = by_name.get(name, 0.0) + (end - start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     print("profile", json.dumps({
-        "cache": "int4", "batch": B, "steps": M,
+        "run": label, "batch": B, "steps": M,
         "wall_ms": wall_s * 1e3, "unprofiled_wall_ms": unprofiled_s * 1e3,
         "device_events": len(kern),
         "device_busy_ms": busy_us / 1e3 if kern else "not measured",
@@ -274,15 +433,17 @@ def where_time_goes(eng, ids, mask, unprofiled_s):
         "top": [{"kernel": n[:100], "ms": us / 1e3} for n, us in top]}))
 
 
-def main_path(launches):
-    """Phase 4: serve beam-1000 retrieval at t5-base through
-    RetrievalEngine. Returns launch counts of this phase."""
+MEGAROW_KERNELS = ("reorder_cache_all", "step_attention_seq",
+                   "beam_gather_rows")
+
+
+def make_world():
+    """The full-width model and data of phases 4 and 6: ripor_base(M=32,
+    K=256) with random bf16 weights from the seed, a 100,000-doc
+    random-code corpus and its trie, 40 random queries."""
     import torch
-    from ripor_tpu_torch.data.tokenizer import HashTokenizer, tokenize_queries
-    from ripor_tpu_torch.decode.beam import NEG_INF
+    from ripor_tpu_torch.data.tokenizer import HashTokenizer
     from ripor_tpu_torch.models import init_params, ripor_base
-    from ripor_tpu_torch.ops import KERNEL_LAUNCHES
-    from ripor_tpu_torch.serve import RetrievalEngine, ServeConfig
     from ripor_tpu_torch.trie import build_trie
 
     cfg = ripor_base(M=M, K=K)
@@ -296,10 +457,46 @@ def main_path(launches):
     words = [f"w{i}" for i in range(5000)]
     queries = [" ".join(rng.choice(words, rng.integers(3, 12)))
                for _ in range(40)]
-    tok = HashTokenizer()
     print("main_path_setup", json.dumps({
         "seconds": time.monotonic() - t0, "docs": N_DOCS,
         "groups": int(trie.num_groups), "trie_nodes": int(trie.num_internal)}))
+    return dict(cfg=cfg, sd=sd, trie=trie, docids=docids, queries=queries,
+                tok=HashTokenizer())
+
+
+def check_beams(tag, trie, scores, bcodes, state):
+    """Every beam of a beam-1000 search is live and sits on a trie leaf
+    whose group codes are its codes."""
+    from ripor_tpu_torch.decode.beam import NEG_INF
+    check((scores > NEG_INF / 2).all(), f"{tag}: dead beams at beam 1000")
+    groups = -2 - state
+    check((groups >= 0).all(), f"{tag}: live beam off a leaf")
+    check(np.array_equal(trie.unique_codes[groups], bcodes),
+          f"{tag}: beam codes differ from their trie group")
+    return groups
+
+
+def check_results(tag, res):
+    """1000 results per query, finite scores that do not increase."""
+    for r in res:
+        check(len(r) == 1000, f"{tag}: {len(r)} results, not 1000")
+        s = [v for _, v in r]
+        check(all(np.isfinite(s)), f"{tag}: non-finite score")
+        check(all(a >= b for a, b in zip(s, s[1:])),
+              f"{tag}: scores increase")
+
+
+def main_path(world, launches):
+    """Phase 4: serve beam-1000 retrieval at t5-base through
+    RetrievalEngine on the megarow path. Fills ``launches`` with this
+    phase's launch counts."""
+    import torch
+    from ripor_tpu_torch.data.tokenizer import tokenize_queries
+    from ripor_tpu_torch.ops import KERNEL_LAUNCHES
+    from ripor_tpu_torch.serve import RetrievalEngine, ServeConfig
+
+    cfg, sd, trie = world["cfg"], world["sd"], world["trie"]
+    docids, queries, tok = world["docids"], world["queries"], world["tok"]
     valid = set(map(tuple, trie.unique_codes.tolist()))
 
     for k in KERNEL_LAUNCHES:
@@ -327,12 +524,7 @@ def main_path(launches):
                 async_s = time.monotonic() - t0
             finally:
                 eng.stop()
-        for r in res:
-            check(len(r) == 1000, f"{quant}: {len(r)} results, not 1000")
-            s = [v for _, v in r]
-            check(all(np.isfinite(s)), f"{quant}: non-finite score")
-            check(all(a >= b for a, b in zip(s, s[1:])),
-                  f"{quant}: scores increase")
+        check_results(quant, res)
         # the beams behind one batch: live codes must be trie paths
         # (timed: one B=8 batch, host clock around work ending in a copy
         # to the host)
@@ -341,16 +533,12 @@ def main_path(launches):
         scores, bcodes, state = (a.cpu().numpy() for a in eng._fn(
             eng._model, ids, mask, eng._tables))
         decode_s = time.monotonic() - t0
-        live = scores > NEG_INF / 2
-        check(live.all(), f"{quant}: dead beams at beam 1000")
-        groups = -2 - state
-        check((groups >= 0).all(), f"{quant}: live beam off a leaf")
-        check(np.array_equal(trie.unique_codes[groups], bcodes),
-              f"{quant}: beam codes differ from their trie group")
+        check_beams(quant, trie, scores, bcodes, state)
         check(all(tuple(c) in valid for c in bcodes.reshape(-1, M)[:4000]),
               f"{quant}: beam code not in the corpus")
         if quant == "int4":
-            where_time_goes(eng, ids, mask, decode_s)
+            where_time_goes("megarow int4", lambda: eng._fn(
+                eng._model, ids, mask, eng._tables), decode_s)
         rec = {"cache": quant or "bf16", "warmup_s": warm_s,
                "sync_queries": n_sync, "sync_s": sync_s,
                "sync_qps": n_sync / sync_s,
@@ -366,9 +554,83 @@ def main_path(launches):
         print("main_path", json.dumps(rec))
         del eng
         torch.cuda.empty_cache()
-    launches.update(KERNEL_LAUNCHES)
-    for k, v in launches.items():
-        check(v > 0, f"kernel {k} never launched on the main path")
+    for k in MEGAROW_KERNELS:
+        launches[k] = KERNEL_LAUNCHES[k]
+        check(launches[k] > 0, f"kernel {k} never launched on the main path")
+
+
+# path, make_beam_search_fn kwargs, launches one B=8 search must make
+OTHER_PATHS = (
+    ("deferred int4", dict(megarow=False, kv_cache_quant="int4"),
+     {"step_attend_reorder": M * L, "beam_gather_rows": M - 1}),
+    ("deferred int8", dict(megarow=False, kv_cache_quant="int8"),
+     {"step_attend_reorder": M * L, "beam_gather_rows": M - 1}),
+    ("deferred bf16", dict(megarow=False),
+     {"step_attend_reorder": M * L, "beam_gather_rows": M - 1}),
+    ("non-deferred bf16", dict(deferred=False),
+     {"step_attention_fused": M * L, "beam_gather_rows": M - 1,
+      "beam_gather_update": M - 1}),
+)
+
+
+def other_paths(world, launches):
+    """Phase 6: one B=8 beam-1000 search on each of the deferred per-layer
+    and non-deferred paths at phase 4's model, corpus and queries (after
+    one warm-up search), with phase 4's checks and a profile; two more
+    searches time it (median of three). Counters are zeroed just before
+    the first timed search and read just after; it must show exactly its
+    path's kernels. Adds those launches to ``launches``."""
+    import torch
+    from ripor_tpu_torch.data.tokenizer import tokenize_queries
+    from ripor_tpu_torch.decode.beam import (expand_groups_to_docids,
+                                             make_beam_search_fn)
+    from ripor_tpu_torch.models import RiporModel
+    from ripor_tpu_torch.ops import KERNEL_LAUNCHES
+    from ripor_tpu_torch.trie import succinct_tables, tables_to_torch
+
+    cfg, trie = world["cfg"], world["trie"]
+    model = RiporModel(cfg, dtype=torch.bfloat16, device="cuda")
+    model.load_state_dict(world["sd"])
+    tables = tables_to_torch(succinct_tables(trie), "cuda")
+    ids, mask = tokenize_queries(world["tok"], world["queries"][:B], 64)
+    for tag, kw, expect in OTHER_PATHS:
+        fn = make_beam_search_fn(cfg, 1000, device="cuda", **kw)
+
+        def search():
+            return fn(model, ids, mask, tables)
+
+        search()                                  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in KERNEL_LAUNCHES:
+            KERNEL_LAUNCHES[k] = 0
+        t0 = time.monotonic()
+        scores, bcodes, state = (a.cpu().numpy() for a in search())
+        times = [time.monotonic() - t0]
+        counts = dict(KERNEL_LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(counts == {k: expect.get(k, 0) for k in counts},
+              f"{tag}: launches {counts}, expected {expect}")
+        groups = check_beams(tag, trie, scores, bcodes, state)
+        check_results(tag, [list(zip(*expand_groups_to_docids(
+            trie, groups[b], scores[b], 1000))) for b in range(B)])
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        # two more timed searches: the host clock of one search spreads
+        # (the host is shared), the median is reported
+        for _ in range(2):
+            t0 = time.monotonic()
+            search()[0].cpu()
+            times.append(time.monotonic() - t0)
+        decode_s = float(np.median(times))
+        print("other_path", json.dumps({
+            "path": tag, "batch": B, "decode_b8_s": decode_s,
+            "decode_b8_s_runs": times,
+            "ms_per_decode_step_b8": decode_s / M * 1e3,
+            "qps_b8": B / decode_s, "max_memory_allocated_gb": peak_gb,
+            "launches": counts}))
+        where_time_goes(tag, search, decode_s)
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -396,27 +658,46 @@ def main():
                                **_build.BUILD_INFO}))
 
     results = []
-    kernel_checks(results)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    megarow_checks(results, g)
+    deferred_checks(results, g)
+    non_deferred_checks(results, g)
     small_agreement()
+    world = make_world()
     launches = {}
-    main_path(launches)
+    main_path(world, launches)
+    phase6 = {}
+    other_paths(world, phase6)
 
-    sources = {"reorder_cache_all": "ripor_tpu/ops/megarow.py:288",
-               "step_attention_seq": "ripor_tpu/ops/megarow.py:666",
-               "beam_gather_rows": "ripor_tpu/ops/beam_gather.py:47"}
+    # kernel: (TPU kernel it replaces, case of the reported times, path
+    # whose run gives the launches)
+    kernels_of = {
+        "reorder_cache_all": ("ripor_tpu/ops/megarow.py:288", "int4 Mc=32",
+                              launches),
+        "step_attention_seq": ("ripor_tpu/ops/megarow.py:666", "int4 Mc=32",
+                               launches),
+        "beam_gather_rows": ("ripor_tpu/ops/beam_gather.py:47", "int4 Mc=32",
+                             launches),
+        "step_attend_reorder": ("ripor_tpu/ops/attend_reorder.py:525",
+                                "int4 Mc=32", phase6),
+        "step_attention_fused": ("ripor_tpu/ops/step_attention.py:165",
+                                 "bf16 Mc=32", phase6),
+        "beam_gather_update": ("ripor_tpu/ops/beam_gather.py:181",
+                               "bf16 Mc=32", phase6),
+    }
     kernels = []
-    for name, replaces in sources.items():
+    for name, (replaces, case, counts) in kernels_of.items():
         recs = [r for n, _, r in results if n == name]
-        main = next(r for n, tg, r in results
-                    if n == name and tg == "int4 Mc=32")
+        main = next(r for n, tg, r in results if n == name and tg == case)
+        check(counts[name] > 0, f"kernel {name} never launched on its path")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"ripor_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": counts[name],
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"], "case": "int4 Mc=32"})
+            "library_ms": main["library_ms"], "case": case})
     print("total_s", time.monotonic() - t_all)
     print(smi.splitlines()[0])
     print(json.dumps({"kernels": kernels}))

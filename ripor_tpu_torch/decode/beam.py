@@ -1,18 +1,27 @@
-"""Trie-constrained beam search on the megarow decode path, in PyTorch.
+"""Trie-constrained beam search, in PyTorch.
 
-Port of ripor_tpu/decode/beam.py (``make_beam_search_fn`` with megarow=True
-and, for quantized caches, QFUSE). Per step:
+Port of ripor_tpu/decode/beam.py (``make_beam_search_fn``) on its three
+kernel decode paths. Per step, after the projections of each layer:
 
-  K1 reorder (pending beam permutation + slot t-1 insert)
-  -> per layer: projections, K2 step attention, cross-attention, FFN
-  -> codebook-head logits -> trie mask -> scores + top-k
-  -> K3 gather of this step's K|V rows into the new beam order
+  megarow (default when the segment spans are even):
+    K1 reorder of all layers (pending beam permutation + slot t-1 insert)
+    -> per layer K2 step attention (QFUSE: it also emits quantized rows)
+  deferred per-layer (megarow=False):
+    per layer K4: reorder of that layer + slot t-1 insert + attention
+  non-deferred (deferred=False; the default when a span is odd):
+    per layer K5 step attention over the stacked cache
 
-The pending reorder is carried as (src_prev, kvg): the next step's K1
-completes it while copying the cache into the other buffer of a pair that
-is swapped by reference each step. The whole loop issues no host sync
-(no ``.item()``, no tensor in a Python condition), so on the card the
-host runs ahead and the device never waits for it.
+  -> cross-attention, FFN -> codebook-head logits -> trie mask -> top-k
+  -> megarow, deferred: K3 gather of this step's K|V rows into the new
+     beam order; non-deferred: K3 + K6, the cache reorder with the slot t
+     insert (every step but the last)
+
+The two deferred paths carry the pending reorder as (src_prev, kvg): the
+next step completes it while copying the cache into the other buffer of a
+pair that is swapped by reference each step; the non-deferred path swaps
+its pair at each reorder. The whole loop issues no host sync (no
+``.item()``, no tensor in a Python condition), so on the card the host
+runs ahead and the device never waits for it.
 
 Score semantics match the reference: raw cumulative logits, no EOS, every
 sequence runs all M steps, optional log-softmax in the model.
@@ -26,7 +35,9 @@ import numpy as np
 import torch
 
 from ripor_tpu_torch.models.config import RiporConfig
-from ripor_tpu_torch.ops.beam_gather import beam_gather_rows
+from ripor_tpu_torch.ops.attend_reorder import quantize_rows_plain
+from ripor_tpu_torch.ops.beam_gather import (beam_gather_rows,
+                                             beam_gather_update)
 
 NEG_INF = -1e30
 
@@ -117,6 +128,31 @@ def _segment_bounds(M: int, cache_segments: int):
     return bounds
 
 
+def _reorder_cache(cache, src, kv_new, t: int, out):
+    """Non-deferred cache reorder: out = cache gathered along the beam axis
+    by src [B, N], with slot t := this step's K/V rows in the new beam
+    order. cache, out: [L, 2, B, N, Mc, F]; kv_new: [L, 2, B, N, F]. K3
+    permutes kv_new, then K6 moves the cache, both over the L*2*B planes
+    with src tiled."""
+    L, two, B, N, Mc, F = cache.shape
+    G = L * two * B
+    src_rep = src.repeat(L * two, 1)
+    kvg = beam_gather_rows(kv_new.reshape(G, N, F), src_rep)
+    beam_gather_update(cache.view(G, N, Mc, F), kvg, src_rep, t,
+                       out.view(G, N, Mc, F))
+    return out
+
+
+def _grow(buf: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    """buf zero-padded along ``dim`` to ``size`` (a cache growing to the
+    next segment's slot count; new slots are zero, see init_cache_*)."""
+    shape = list(buf.shape)
+    shape[dim] = size
+    grown = buf.new_zeros(shape)
+    grown.narrow(dim, 0, buf.shape[dim]).copy_(buf)
+    return grown
+
+
 def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
                         constrained: bool = True,
                         max_steps: Optional[int] = None,
@@ -129,7 +165,7 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
                         megarow: Optional[bool] = None,
                         ffn_int8: Optional[bool] = None,
                         device=None):
-    """Build a beam-search function on the megarow decode path.
+    """Build a beam-search function.
 
     Returns fn(model, input_ids, attention_mask, tables) -> (scores [B, N]
     float32, codes [B, N, M], states [B, N]) as tensors on ``device``.
@@ -137,27 +173,35 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
     from trie.tables_to_torch (for unconstrained search pass
     constrained=False and tables_to_torch(dummy_tables(M))).
 
-    Arguments are validated as the reference validates them, so the same
-    calls are accepted and refused. ``cache_segments``: the cache grows
-    over that many equal step spans (M/S, 2M/S, ..., M slots), which cuts
-    reorder and attention bytes; every span must be even (the reference's
-    deferred-path rule). ``kv_cache_quant`` "int8"/"int4" (or
-    kv_cache_int8=True) stores the cache quantized; K2 then emits each
-    step's rows already quantized (QFUSE) — the only quantized dataflow
-    ported, bit-identical to the others by the reference's own test.
-    ``kvg_quant_xla`` selects a dataflow that QFUSE subsumes; it is
-    validated and otherwise has no effect. ``deferred``/``megarow``: only
-    the megarow path exists here; asking for another raises
-    NotImplementedError, as does ``ffn_int8=True``.
+    Arguments select the path and are validated as the reference selects
+    and validates them, so the same calls are accepted and refused.
+    ``cache_segments``: the cache grows over that many equal step spans
+    (M/S, 2M/S, ..., M slots), which cuts reorder and attention bytes.
+    ``megarow`` (default: on when every span is even and ``deferred`` is
+    not False) takes the megarow path; ``megarow=False`` with even spans
+    the deferred per-layer path; ``deferred=False``, or odd spans, the
+    non-deferred path, which holds exact caches only. ``kv_cache_quant``
+    "int8"/"int4" (or kv_cache_int8=True) stores the cache quantized and
+    needs a deferred path. On the megarow path K2 emits each step's rows
+    already quantized (QFUSE), the only quantized megarow dataflow
+    ported, bit-identical to the others by the reference's own test. On
+    the deferred path K4 quantizes step t-1's exact rows as it inserts
+    them, unless ``kvg_quant_xla`` (int8 caches only) quantizes them once
+    per step before the gather; on the megarow path ``kvg_quant_xla`` is
+    subsumed by QFUSE and has no effect. ``ffn_int8=True`` raises
+    NotImplementedError (not ported yet).
 
     The reference's TPU knobs — use_pallas_gather, the RIPOR_* switches,
     chunk and layer-group picks, the ceil-8 slot rounding and the beam
     padding — have no counterpart: they served the TPU's tiling and VMEM.
+    The kernel paths are the port's only paths, as use_pallas_gather=True
+    is the reference's.
     """
     M = max_steps or cfg.M
     N = num_beams
     K = cfg.K
     L = cfg.t5.num_decoder_layers
+    H = cfg.t5.num_heads
     if kv_cache_quant not in (None, "int8", "int4"):
         raise ValueError(f"kv_cache_quant must be int8/int4/None, "
                          f"got {kv_cache_quant!r}")
@@ -189,15 +233,14 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
             f"kv_cache_quant={quant} requires the deferred decode path, but "
             f"the segment spans for M={M}, cache_segments={cache_segments} "
             f"(bounds {bounds}) are not all even — adjust cache_segments")
-    if kvg_quant_xla and not quant:
+    if kvg_quant_xla and not (quant == "int8" or (megarow and quant)):
         raise ValueError("kvg_quant_xla needs a quantized cache "
                          "(kv_cache_quant='int8'/'int4')")
     if ffn_int8:
         raise NotImplementedError(f"ffn_int8 {_LATER}")
-    if not megarow:
-        raise NotImplementedError(
-            f"the {'per-layer deferred' if deferred else 'XLA'} decode path "
-            f"{_LATER}; only the megarow path is ported")
+    # the deferred per-layer path with int8 rows quantized before the
+    # gather (validated above: an int8 cache)
+    kvg_q8 = bool(kvg_quant_xla) and not megarow
     dev = resolve_device(device)
 
     def select(beam_scores, state, codes, logits, tables, t: int):
@@ -240,44 +283,76 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
         cross_kv = model.decoder.precompute_cross_kv(enc)
         self_bias = model.decoder.full_self_bias(bounds[-1])
         enc_bias = torch.where(mask > 0, 0.0, NEG_INF).float()
+        ctx = (cross_kv, enc_bias, self_bias)
 
         beam_scores = torch.full((B, N), NEG_INF, device=dev)
         beam_scores[:, 0] = 0.0
         state = torch.zeros(B, N, dtype=torch.long, device=dev)
         tokens = torch.zeros(B, N, dtype=torch.long, device=dev)
         codes = torch.zeros(B, N, M, dtype=torch.long, device=dev)
-        # the cache pair: ``cache`` holds the previous step's beam order,
-        # ``spare`` receives the reorder; they swap every step
-        cache = model.decoder.init_cache_megarow(B, N, bounds[0],
-                                                 quantized=quant or False)
+        # the cache pair: ``cache`` holds the current beam order (for the
+        # deferred paths: the previous step's), ``spare`` receives the
+        # reorder; they swap every step
+        dec = model.decoder
+        if megarow:
+            cache = dec.init_cache_megarow(B, N, bounds[0],
+                                           quantized=quant or False)
+        elif deferred:
+            cache = dec.init_cache_merged(B, N, bounds[0],
+                                          quantized=quant or False)
+        else:
+            cache = dec.init_cache(B, N, bounds[0])
         spare = torch.zeros_like(cache)
+        slot_axis = cache.dim() - 2
         src_prev = torch.arange(N, dtype=torch.int32,
                                 device=dev).expand(B, N).contiguous()
-        # step t-1's rows in cache-row layout. The t=0 placeholder is
-        # inserted at slot 0 and never read unmasked (slot 0 is rewritten
-        # at t=1); zeros keep it finite.
-        row_w = cache.shape[-1]
-        kvg = torch.zeros(B, N, L * row_w, dtype=cache.dtype, device=dev)
+        # the deferred paths' pending rows of step t-1, in current beam
+        # order: cache-layout rows on the megarow path (its QFUSE rows,
+        # or exact rows) and with kvg_quant_xla, else exact K|V rows. The
+        # t=0 placeholder is never read unmasked (megarow inserts it at
+        # slot 0, rewritten at t=1; K4 inserts nothing at t=0); zeros keep
+        # it finite.
+        if megarow or kvg_q8:
+            kvg = torch.zeros(B, N, L * cache.shape[-1], dtype=cache.dtype,
+                              device=dev)
+        else:
+            kvg = torch.zeros(B, N, L * 2 * cfg.t5.inner_dim, dtype=dtype,
+                              device=dev)
         lo = 0
         for s, hi in enumerate(bounds):
             for t in range(lo, hi):
-                logits, spare, kv_new = model.decode_step_megarow(
-                    tokens, cache, spare, src_prev, kvg, cross_kv, enc_bias,
-                    self_bias, t, emit_quant=quant)
-                cache, spare = spare, cache
+                last = t + 1 == M          # the last step's rows are dead
+                if megarow:
+                    logits, spare, kv_new = model.decode_step_megarow(
+                        tokens, cache, spare, src_prev, kvg, *ctx, t,
+                        emit_quant=quant)
+                    cache, spare = spare, cache
+                elif deferred:
+                    logits, spare, kv_new = model.decode_step_deferred(
+                        tokens, cache, spare, src_prev, kvg, *ctx, t,
+                        write_back=not last)
+                    cache, spare = spare, cache
+                else:
+                    logits, kv_new = model.decode_step(tokens, cache, *ctx,
+                                                       t)
                 beam_scores, state, tokens, codes, src = select(
                     beam_scores, state, codes, logits, tables, t)
-                src_prev = src.to(torch.int32)
-                if t + 1 < M:      # the last step's rows are never read
-                    kvg = beam_gather_rows(kv_new, src_prev)
+                src = src.to(torch.int32)
+                if last:
+                    continue
+                if deferred:
+                    src_prev = src
+                    if kvg_q8:
+                        kv_new = quantize_rows_plain(
+                            kv_new.view(B, N, L, -1), H).view(B, N, -1)
+                    kvg = beam_gather_rows(kv_new, src)
+                else:
+                    spare = _reorder_cache(cache, src, kv_new, t, spare)
+                    cache, spare = spare, cache
             if s + 1 < len(bounds):
-                # grow both buffers to the next segment's slot count; new
-                # slots are zero (see init_cache_megarow)
+                # grow both buffers to the next segment's slot count
                 del spare
-                grown = cache.new_zeros(*cache.shape[:3], bounds[s + 1],
-                                        row_w)
-                grown[:, :, :, :bounds[s]] = cache
-                cache = grown
+                cache = _grow(cache, slot_axis, bounds[s + 1])
                 spare = torch.zeros_like(cache)
             lo = hi
         return beam_scores, codes, state

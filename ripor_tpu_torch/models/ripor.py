@@ -99,6 +99,22 @@ class RiporModel(nn.Module):
 
     # ---- decode path (decode/beam.py) ----
 
+    def _step_input(self, tokens, t: int):
+        """Position-t decoder input [B, N, d]: the start embedding at t == 0,
+        else codebooks[t-1, tokens] (tokens: [B, N] codes chosen at t-1)."""
+        b, n = tokens.shape
+        if t == 0:
+            return self.start_embed[None, None, :].expand(b, n, -1)
+        return self.codebooks[t - 1][tokens]
+
+    def _step_logits(self, hidden, t: int):
+        """Position-t logits [B, N, K] float32 from the decoder output."""
+        logits = (self._maybe_scale(hidden).float()
+                  @ self._out_books()[t].float().T)
+        if self.cfg.apply_log_softmax:
+            logits = torch.log_softmax(logits, dim=-1)
+        return logits
+
     def decode_step_megarow(self, tokens, cache_src, cache_dst, src, kvg,
                             cross_kv: CrossKV, enc_bias, self_bias, t: int,
                             emit_quant: Optional[str] = None):
@@ -106,16 +122,28 @@ class RiporModel(nn.Module):
         (Decoder.decode_step_megarow). tokens: [B, N] codes chosen at step
         t-1 (ignored at t == 0). Returns (logits [B, N, K] float32 for
         position t, new cache, kv_new)."""
-        b, n = tokens.shape
-        if t == 0:
-            x = self.start_embed[None, None, :].expand(b, n, -1)
-        else:
-            x = self.codebooks[t - 1][tokens]             # [B, N, d]
         hidden, new_cache, kv_new = self.decoder.decode_step_megarow(
-            x, cache_src, cache_dst, src, kvg, cross_kv, enc_bias, self_bias,
-            t, emit_quant=emit_quant)
-        hidden = self._maybe_scale(hidden)
-        logits = hidden.float() @ self._out_books()[t].float().T
-        if self.cfg.apply_log_softmax:
-            logits = torch.log_softmax(logits, dim=-1)
-        return logits, new_cache, kv_new
+            self._step_input(tokens, t), cache_src, cache_dst, src, kvg,
+            cross_kv, enc_bias, self_bias, t, emit_quant=emit_quant)
+        return self._step_logits(hidden, t), new_cache, kv_new
+
+    def decode_step_deferred(self, tokens, cache_src, cache_dst, src, kvg,
+                             cross_kv: CrossKV, enc_bias, self_bias, t: int,
+                             write_back: bool = True):
+        """One beam decode step over the layer-major merged cache with the
+        reorder deferred into K4 (Decoder.decode_step_deferred). Returns
+        (logits, cache_dst, kv_new [B, N, L*2F])."""
+        hidden, new_cache, kv_new = self.decoder.decode_step_deferred(
+            self._step_input(tokens, t), cache_src, cache_dst, src, kvg,
+            cross_kv, enc_bias, self_bias, t, write_back=write_back)
+        return self._step_logits(hidden, t), new_cache, kv_new
+
+    def decode_step(self, tokens, cache, cross_kv: CrossKV, enc_bias,
+                    self_bias, t: int):
+        """One non-deferred beam decode step over the stacked cache
+        (Decoder.decode_step; the cache is only read). Returns (logits,
+        kv_new [L, 2, B, N, F])."""
+        hidden, kv_new = self.decoder.decode_step(
+            self._step_input(tokens, t), cache, cross_kv, enc_bias,
+            self_bias, t)
+        return self._step_logits(hidden, t), kv_new

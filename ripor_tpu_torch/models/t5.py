@@ -1,9 +1,13 @@
-"""T5 encoder / decoder stacks in PyTorch, with the megarow decode step.
+"""T5 encoder / decoder stacks in PyTorch, with the beam decode steps.
 
 Port of ripor_tpu/models/t5.py: the full-sequence encoder and decoder, and
-the decoder's beam decode step over the beam-major megarow KV cache
-[B, N, L, Mc, RW] (ops/megarow.py). Beams are a first-class axis and
-cross-attention reads the unexpanded encoder K/V [B, S, H, D].
+the decoder's three beam decode steps, one per KV cache layout:
+  megarow       [B, N, L, Mc, RW]     K1 + K2 (ops/megarow.py)
+  deferred      [L, B, N, Mc, RW]     K4 (ops/attend_reorder.py)
+  non-deferred  [L, 2, B, N, Mc, F]   K5 (ops/step_attention.py); the beam
+                                      loop's reorder inserts the new k/v
+Beams are a first-class axis and cross-attention reads the unexpanded
+encoder K/V [B, S, H, D].
 """
 from __future__ import annotations
 
@@ -22,8 +26,10 @@ from ripor_tpu_torch.models.layers import (
     causal_bias,
     padding_bias,
 )
-from ripor_tpu_torch.ops.attend_reorder import SCALE_COLS
+from ripor_tpu_torch.ops.attend_reorder import (row_width,
+                                                 step_attend_reorder)
 from ripor_tpu_torch.ops.megarow import reorder_cache_all, step_attention_seq
+from ripor_tpu_torch.ops.step_attention import step_attention_fused
 
 CrossKV = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -99,10 +105,10 @@ class DecoderLayer(nn.Module):
 
     def step_qkv(self, x):
         """Self-attention projections for one decode position, flat:
-        x [B, N, d] -> q [B, N, F], kv [B, N, 2F] (K heads then V heads)."""
+        x [B, N, d] -> q, k, v [B, N, F]."""
         h = self.self_attn_norm(x)
         sa = self.self_attn
-        return sa.q(h), torch.cat([sa.k(h), sa.v(h)], dim=-1)
+        return sa.q(h), sa.k(h), sa.v(h)
 
     def step_finish_with_attn(self, x, attn_flat, enc_k, enc_v, enc_bias):
         """Residual + output projection of the self-attention result
@@ -115,7 +121,7 @@ class DecoderLayer(nn.Module):
 
 
 class Decoder(nn.Module):
-    """T5 decoder over already-embedded inputs, full-sequence and megarow
+    """T5 decoder over already-embedded inputs, full-sequence and beam
     step paths (keeps the final layer norm, as the reference does)."""
 
     def __init__(self, cfg: T5Config, dtype=torch.float32, device=None):
@@ -141,32 +147,64 @@ class Decoder(nn.Module):
 
     def full_self_bias(self, max_len: int) -> torch.Tensor:
         """[H, M, M] float32 relpos + causal bias, computed once per call."""
-        dev = self.rel_bias.rel_embedding.device
         bias = self.rel_bias(max_len, max_len)[0]
-        return bias + causal_bias(max_len, dev)[0, 0]
+        return bias + causal_bias(max_len, self._device())[0, 0]
 
     def precompute_cross_kv(self, enc) -> CrossKV:
         return [layer.cross_kv(enc) for layer in self.layers]
 
+    def _cache_rows(self, quantized) -> Tuple[int, torch.dtype]:
+        """(row width, dtype) of K|V-merged cache rows: exact [2F] rows in
+        the compute dtype; "int8"/True int8 rows [2F + SCALE_COLS]; "int4"
+        packed rows [F + SCALE_COLS]."""
+        quant = ("int8" if quantized is True else quantized) or None
+        return (row_width(self.cfg.inner_dim, quant),
+                torch.int8 if quant else self.dtype)
+
     def init_cache_megarow(self, batch: int, num_beams: int, max_len: int,
                            quantized: "bool | str" = False) -> torch.Tensor:
-        """Zeroed beam-major K|V-merged cache [B, N, L, Mc, RW]. Exact rows
-        are [2F] in the compute dtype; ``quantized`` "int8"/True gives int8
-        rows [2F + SCALE_COLS], "int4" packed rows [F + SCALE_COLS].
+        """Zeroed beam-major K|V-merged cache [B, N, L, Mc, RW] (rows as in
+        _cache_rows).
 
         Zeroed, not empty: masked slots are multiplied by probability 0,
         and 0 * NaN (a bf16 garbage pattern) or an int8 garbage exponent
-        (2^127) would poison the sum."""
+        (2^127) would poison the sum. The same holds for every cache
+        below."""
+        rw, dt = self._cache_rows(quantized)
+        return torch.zeros(batch, num_beams, self.cfg.num_decoder_layers,
+                           max_len, rw, dtype=dt, device=self._device())
+
+    def init_cache_merged(self, batch: int, num_beams: int, max_len: int,
+                          quantized: "bool | str" = False) -> torch.Tensor:
+        """Zeroed layer-major K|V-merged cache [L, B, N, Mc, RW] of the
+        deferred decode (rows as in _cache_rows)."""
+        rw, dt = self._cache_rows(quantized)
+        return torch.zeros(self.cfg.num_decoder_layers, batch, num_beams,
+                           max_len, rw, dtype=dt, device=self._device())
+
+    def init_cache(self, batch: int, num_beams: int,
+                   max_len: int) -> torch.Tensor:
+        """Zeroed stacked cache [L, 2, B, N, Mc, F] (K plane, V plane) of the
+        non-deferred decode, in the compute dtype."""
         cfg = self.cfg
-        dev = self.rel_bias.rel_embedding.device
-        if quantized:
-            payload = (cfg.inner_dim if quantized == "int4"
-                       else 2 * cfg.inner_dim)
-            return torch.zeros(batch, num_beams, cfg.num_decoder_layers,
-                               max_len, payload + SCALE_COLS,
-                               dtype=torch.int8, device=dev)
-        return torch.zeros(batch, num_beams, cfg.num_decoder_layers, max_len,
-                           2 * cfg.inner_dim, dtype=self.dtype, device=dev)
+        return torch.zeros(cfg.num_decoder_layers, 2, batch, num_beams,
+                           max_len, cfg.inner_dim, dtype=self.dtype,
+                           device=self._device())
+
+    def _device(self):
+        return self.rel_bias.rel_embedding.device
+
+    @staticmethod
+    def _step_biases(self_bias_full, t: int, cache_len: int):
+        """Position t's self-attention biases over a cache of cache_len
+        slots: bias_hist [Mc, H] (relpos, slots >= t masked: history holds
+        [0, t), position t enters on its own) and bias_new [1, H]."""
+        bias_row = self_bias_full[:, t, :cache_len]             # [H, Mc]
+        key_pos = torch.arange(cache_len, device=bias_row.device)
+        bias_hist = (bias_row + torch.where(key_pos < t, 0.0, NEG_INF)
+                     [None, :]).T.contiguous()                 # [Mc, H]
+        bias_new = bias_row[:, t][None, :].contiguous()         # [1, H]
+        return bias_hist, bias_new
 
     def decode_step_megarow(self, x, cache_src, cache_dst, src, kvg,
                             cross_kv: CrossKV, enc_bias, self_bias_full,
@@ -181,20 +219,17 @@ class Decoder(nn.Module):
         Returns (hidden [B, N, d], cache_dst, kv_new [B, N, L*w]) where
         kv_new stacks this step's rows per layer: exact [2F] rows, or with
         ``emit_quant`` the cache-layout rows K2 emitted (QFUSE)."""
-        cfg = self.cfg
-        cache_len = cache_src.shape[3]
-        bias_row = self_bias_full[:, t, :cache_len]             # [H, Mc]
-        key_pos = torch.arange(cache_len, device=x.device)
-        bias_hist = (bias_row + torch.where(key_pos < t, 0.0, NEG_INF)
-                     [None, :]).T.contiguous()                 # [Mc, H]
-        bias_new = bias_row[:, t][None, :].contiguous()         # [1, H]
+        bias_hist, bias_new = self._step_biases(self_bias_full, t,
+                                                cache_src.shape[3])
         cache = reorder_cache_all(kvg, cache_src, cache_dst, src, t)
         kvnews = []
         for l, (layer, (enc_k, enc_v)) in enumerate(zip(self.layers,
                                                          cross_kv)):
-            q, kvf = layer.step_qkv(x)
+            q, k, v = layer.step_qkv(x)
+            kvf = torch.cat([k, v], dim=-1)
             attn = step_attention_seq(q, kvf, cache, l, bias_hist, bias_new,
-                                      cfg.num_heads, emit_quant=emit_quant)
+                                      self.cfg.num_heads,
+                                      emit_quant=emit_quant)
             if emit_quant:
                 attn, kvf = attn
             kvnews.append(kvf)
@@ -202,3 +237,56 @@ class Decoder(nn.Module):
         kv_new = torch.stack(kvnews, dim=2).reshape(x.shape[0], x.shape[1],
                                                     -1)
         return self.final_norm(x), cache, kv_new
+
+    def decode_step_deferred(self, x, cache_src, cache_dst, src, kvg,
+                             cross_kv: CrossKV, enc_bias, self_bias_full,
+                             t: int, write_back: bool = True):
+        """One decode step with the beam reorder deferred one step and
+        fused, layer by layer, into K4: rows of ``cache_src`` are read
+        through ``src``, slot t-1 is completed from ``kvg`` and, with
+        ``write_back`` (every step but the last), the ordered rows land in
+        ``cache_dst``.
+
+        x: [B, N, d]; cache_src/cache_dst: [L, B, N, Mc, RW] pair
+        (init_cache_merged); src: [B, N] int32; kvg: [B, N, L*2F] step
+        t-1's exact K|V rows in current beam order (or, for an int8 cache,
+        [B, N, L*RW] int8 rows). Returns (hidden, cache_dst, kv_new
+        [B, N, L*2F])."""
+        bias_hist, bias_new = self._step_biases(self_bias_full, t,
+                                                cache_src.shape[3])
+        kvnews = []
+        for l, (layer, (enc_k, enc_v)) in enumerate(zip(self.layers,
+                                                         cross_kv)):
+            q, k, v = layer.step_qkv(x)
+            kvf = torch.cat([k, v], dim=-1)
+            attn, _ = step_attend_reorder(q, kvf, kvg, cache_src, cache_dst,
+                                          src, l, t, bias_hist, bias_new,
+                                          self.cfg.num_heads,
+                                          write_back=write_back)
+            kvnews.append(kvf)
+            x = layer.step_finish_with_attn(x, attn, enc_k, enc_v, enc_bias)
+        kv_new = torch.stack(kvnews, dim=2).reshape(x.shape[0], x.shape[1],
+                                                    -1)
+        return self.final_norm(x), cache_dst, kv_new
+
+    def decode_step(self, x, cache, cross_kv: CrossKV, enc_bias,
+                    self_bias_full, t: int):
+        """One non-deferred decode step: each layer runs K5 over the
+        stacked cache [L, 2, B, N, Mc, F] (history in slots [0, t)) with
+        position t's k/v folded in. The cache is only read; the beam loop's
+        reorder (K6) writes this step's rows into slot t.
+
+        Returns (hidden [B, N, d], kv_new [L, 2, B, N, F])."""
+        bias_hist, bias_new = self._step_biases(self_bias_full, t,
+                                                cache.shape[4])
+        ks, vs = [], []
+        for l, (layer, (enc_k, enc_v)) in enumerate(zip(self.layers,
+                                                         cross_kv)):
+            q, k, v = layer.step_qkv(x)
+            attn = step_attention_fused(q, k, v, cache, l, bias_hist,
+                                        bias_new, self.cfg.num_heads)
+            ks.append(k)
+            vs.append(v)
+            x = layer.step_finish_with_attn(x, attn, enc_k, enc_v, enc_bias)
+        return self.final_norm(x), torch.stack([torch.stack(ks),
+                                                torch.stack(vs)], dim=1)

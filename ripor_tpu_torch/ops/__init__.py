@@ -1,17 +1,27 @@
-"""Hot ops of the megarow decode: each is a hand-written CUDA kernel for
+"""Hot ops of the decode paths: each is a hand-written CUDA kernel for
 sm_90a (sources in ripor_tpu_torch/csrc/) with its plain PyTorch version
 beside it. A wrapper runs the plain version only for CPU tensors; for a
 CUDA tensor it launches the kernel or raises. ``KERNEL_LAUNCHES`` counts
-kernel launches per wrapper."""
+kernel launches per wrapper.
+
+  megarow path:        K1 reorder_cache_all, K2 step_attention_seq,
+                       K3 beam_gather_rows
+  deferred path:       K4 step_attend_reorder, K3
+  non-deferred path:   K5 step_attention_fused, K3, K6 beam_gather_update
+"""
 from ripor_tpu_torch.ops._build import KERNEL_LAUNCHES
 from ripor_tpu_torch.ops.attend_reorder import (
     SCALE_COLS,
     quantize_rows_int4_plain,
     quantize_rows_plain,
+    step_attend_reorder,
+    step_attend_reorder_plain,
 )
 from ripor_tpu_torch.ops.beam_gather import (
     beam_gather_rows,
     beam_gather_rows_plain,
+    beam_gather_update,
+    beam_gather_update_plain,
 )
 from ripor_tpu_torch.ops.megarow import (
     reorder_cache_all,
@@ -19,10 +29,17 @@ from ripor_tpu_torch.ops.megarow import (
     step_attention_seq,
     step_attention_seq_plain,
 )
+from ripor_tpu_torch.ops.step_attention import (
+    step_attention_fused,
+    step_attention_fused_plain,
+)
 
 __all__ = [
     "KERNEL_LAUNCHES", "SCALE_COLS", "quantize_rows_plain",
     "quantize_rows_int4_plain", "beam_gather_rows", "beam_gather_rows_plain",
-    "reorder_cache_all", "reorder_cache_all_plain", "step_attention_seq",
-    "step_attention_seq_plain",
+    "beam_gather_update", "beam_gather_update_plain", "reorder_cache_all",
+    "reorder_cache_all_plain", "step_attention_seq",
+    "step_attention_seq_plain", "step_attend_reorder",
+    "step_attend_reorder_plain", "step_attention_fused",
+    "step_attention_fused_plain",
 ]

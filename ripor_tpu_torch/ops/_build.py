@@ -37,6 +37,9 @@ KERNEL_LAUNCHES: Dict[str, int] = {
     "reorder_cache_all": 0,
     "step_attention_seq": 0,
     "beam_gather_rows": 0,
+    "step_attend_reorder": 0,
+    "step_attention_fused": 0,
+    "beam_gather_update": 0,
 }
 
 _lock = threading.Lock()
@@ -143,3 +146,12 @@ def device_kind(*tensors) -> str:
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def require_disjoint(src, dst, what: str) -> None:
+    """Raise unless the buffers of ``src`` and ``dst`` do not overlap (a
+    kernel that reads ``src`` while it writes ``dst``)."""
+    a, b = src.data_ptr(), dst.data_ptr()
+    na = src.numel() * src.element_size()
+    nb = dst.numel() * dst.element_size()
+    require(a + na <= b or b + nb <= a, f"{what} must not alias its source")

@@ -28,21 +28,11 @@ from typing import Optional
 import torch
 
 from ripor_tpu_torch.ops._build import (check_launch, device_kind,
-                                        kernel_fn, require)
+                                        kernel_fn, require,
+                                        require_disjoint)
 from ripor_tpu_torch.ops.attend_reorder import (
-    SCALE_COLS, _unpack_int4, pow2, quantize_rows_int4_plain,
-    quantize_rows_plain)
-
-_KIND = {None: 0, "int8": 1, "int4": 2}
-
-
-def cache_quant(cache: torch.Tensor, F: int) -> Optional[str]:
-    """Quant mode of a megarow cache, inferred from dtype + row width as
-    the reference does: int8 rows of F + SCALE_COLS bytes are packed int4,
-    other int8 rows are int8, anything else is exact."""
-    if cache.dtype == torch.int8:
-        return "int4" if cache.shape[-1] == F + SCALE_COLS else "int8"
-    return None
+    KIND_CODE, attend_plain, cache_quant, decode_rows,
+    quantize_rows_int4_plain, quantize_rows_plain, row_width)
 
 
 # ---------------------------------------------------------------------------
@@ -94,14 +84,11 @@ def reorder_cache_all(kvg: torch.Tensor, cache_src: torch.Tensor,
     require(src.dtype == torch.int32, f"src must be int32, got {src.dtype}")
     require(all(x.is_contiguous() for x in (kvg, cache_src, cache_dst, src)),
             "reorder_cache_all needs contiguous tensors")
-    nbytes = cache_src.numel() * cache_src.element_size()
-    a, b = cache_src.data_ptr(), cache_dst.data_ptr()
-    require(a + nbytes <= b or b + nbytes <= a,
-            "cache_dst must not alias cache_src (the kernel reads rows of "
-            "cache_src while writing cache_dst)")
+    require_disjoint(cache_src, cache_dst, "cache_dst")
     fn = kernel_fn("reorder_cache_all", "reorder_cache_all", 4, 6)
     with torch.cuda.device(cache_src.device):
-        rc = fn(kvg.data_ptr(), a, b, src.data_ptr(), B, N, L, Mc,
+        rc = fn(kvg.data_ptr(), cache_src.data_ptr(), cache_dst.data_ptr(),
+                src.data_ptr(), B, N, L, Mc,
                 RW * cache_src.element_size(), max(t - 1, 0),
                 torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "reorder_cache_all")
@@ -127,8 +114,7 @@ def _check_seq(q, kv_new, cache, layer, bias_hist, bias_new, num_heads,
     require(tuple(kv_new.shape) == (B, N, 2 * F),
             f"kv_new {tuple(kv_new.shape)} != {(B, N, 2 * F)}")
     require(F % num_heads == 0, f"F={F} not divisible by H={num_heads}")
-    require(RW == {None: 2 * F, "int8": 2 * F + SCALE_COLS,
-                   "int4": F + SCALE_COLS}[quant],
+    require(RW == row_width(F, quant),
             f"cache row width {RW} does not fit F={F} ({quant})")
     require(0 <= layer < L, f"layer {layer} outside [0, {L})")
     require(tuple(bias_hist.shape) == (Mc, num_heads),
@@ -141,48 +127,17 @@ def _check_seq(q, kv_new, cache, layer, bias_hist, bias_new, num_heads,
 def step_attention_seq_plain(q, kv_new, cache, layer: int, bias_hist,
                              bias_new, num_heads: int,
                              emit_quant: Optional[str] = None):
-    """Plain version of K2, with the reference math's rounding points
-    (megarow.py _seq_math / _seq_math_quant): k·q products are formed in
-    the dot dtype (bf16 for quantized caches, else the cache dtype) before
-    the f32 per-head sums; probabilities (times the V scale for quantized
-    rows) are cast to the dot dtype before they multiply V, and that
-    product is formed in the dot dtype too; sums and softmax are f32."""
+    """Plain version of K2: attend_plain over layer ``layer``'s rows (the
+    reference math _seq_math / _seq_math_quant): the dot dtype is bf16 for
+    quantized caches, else the cache dtype."""
     quant = _check_seq(q, kv_new, cache, layer, bias_hist, bias_new,
                        num_heads, emit_quant)
-    B, N, F = q.shape
-    H, D = num_heads, F // num_heads
+    F = q.shape[2]
     rows = cache[:, :, layer]                             # [B, N, Mc, RW]
-    Mc = rows.shape[2]
-    if quant == "int4":
-        k_hist, v_hist = _unpack_int4(rows[..., :F])
-        ef = rows[..., F:].float()
-    elif quant == "int8":
-        k_hist = rows[..., :F].to(torch.bfloat16)
-        v_hist = rows[..., F:2 * F].to(torch.bfloat16)
-        ef = rows[..., 2 * F:].float()
-    else:
-        k_hist, v_hist = rows[..., :F], rows[..., F:]
+    k_hist, v_hist, ek, ev = decode_rows(rows, F, num_heads, quant)
     dot_dt = torch.bfloat16 if quant else rows.dtype
-    qb = q.to(dot_dt)
-    kq = k_hist * qb[:, :, None, :]                       # dot-dtype products
-    s_hist = kq.float().reshape(B, N, Mc, H, D).sum(-1)   # [B, N, Mc, H]
-    if quant:
-        s_hist = s_hist * pow2(ef[..., :H])
-    s_hist = s_hist + bias_hist.float()
-    kn = kv_new[..., :F].to(dot_dt) * qb
-    s_new = kn.float().reshape(B, N, H, D).sum(-1) + bias_new.float()
-    probs = torch.softmax(torch.cat([s_hist, s_new[:, :, None]], dim=2),
-                          dim=2)                          # [B, N, Mc+1, H]
-    ps = probs[:, :, :Mc]
-    if quant:
-        ps = ps * pow2(ef[..., H:2 * H])
-    pe = ps.to(dot_dt).repeat_interleave(D, dim=-1)       # [B, N, Mc, F]
-    if dot_dt == torch.float32:
-        out = (pe * v_hist.float()).sum(2)
-    else:
-        out = (pe * v_hist).float().sum(2)
-    pn = probs[:, :, Mc].to(dot_dt).float().repeat_interleave(D, dim=-1)
-    attn = (out + pn * kv_new[..., F:].float()).to(q.dtype)
+    attn = attend_plain(q, kv_new[..., :F], kv_new[..., F:], k_hist, v_hist,
+                        bias_hist, bias_new, num_heads, dot_dt, ek, ev)
     if emit_quant == "int4":
         return attn, quantize_rows_int4_plain(kv_new, num_heads)
     if emit_quant == "int8":
@@ -228,7 +183,7 @@ def step_attention_seq(q: torch.Tensor, kv_new: torch.Tensor,
         rc = fn(q.data_ptr(), kv_new.data_ptr(), cache.data_ptr(),
                 bias_hist.data_ptr(), bias_new.data_ptr(), attn.data_ptr(),
                 kvq.data_ptr() if kvq is not None else None,
-                B * N, L, Mc, F, num_heads, RW, layer, _KIND[quant],
+                B * N, L, Mc, F, num_heads, RW, layer, KIND_CODE[quant],
                 int(q.dtype == torch.float32), int(kvq is not None),
                 torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "step_attention_seq")

@@ -1,0 +1,92 @@
+"""One-position cached self-attention over the stacked KV cache.
+
+Port of ripor_tpu/ops/step_attention.py::step_attention_fused (K5), the
+attention of the non-deferred decode: for one layer of the cache
+[L, 2, B, N, Mc, F] (K plane, then V plane), each beam's query attends to
+slots [0, t) of its history plus position t's own k/v, which are folded
+into the softmax instead of being written to the cache first (the beam
+reorder, ops/beam_gather.py::beam_gather_update, inserts them). All math
+is f32, whatever the input dtype, as in the reference's kernel. The CUDA
+kernel is csrc/step_attention_fused.cu.
+
+The TPU kernel's chunk and block pipeline have no counterpart here: they
+served the TPU's VMEM.
+"""
+from __future__ import annotations
+
+import torch
+
+from ripor_tpu_torch.ops._build import (check_launch, device_kind,
+                                        kernel_fn, require)
+from ripor_tpu_torch.ops.attend_reorder import attend_plain
+
+
+def _check_fused(q, k_new, v_new, cache, layer, bias_hist, bias_new,
+                 num_heads):
+    B, N, F = q.shape
+    require(cache.dim() == 6, f"cache must be [L, 2, B, N, Mc, F], got "
+                              f"{tuple(cache.shape)}")
+    L, two, _, _, Mc, _ = cache.shape
+    require(two == 2 and tuple(cache.shape[2:4]) == (B, N)
+            and cache.shape[5] == F,
+            f"cache {tuple(cache.shape)} does not match q {tuple(q.shape)}")
+    for name, x in (("k_new", k_new), ("v_new", v_new)):
+        require(tuple(x.shape) == (B, N, F),
+                f"{name} {tuple(x.shape)} != {(B, N, F)}")
+    require(F % num_heads == 0, f"F={F} not divisible by H={num_heads}")
+    require(0 <= layer < L, f"layer {layer} outside [0, {L})")
+    require(tuple(bias_hist.shape) == (Mc, num_heads),
+            f"bias_hist {tuple(bias_hist.shape)} != {(Mc, num_heads)}")
+    require(tuple(bias_new.shape) == (1, num_heads),
+            f"bias_new {tuple(bias_new.shape)} != {(1, num_heads)}")
+
+
+def step_attention_fused_plain(q, k_new, v_new, cache, layer: int,
+                               bias_hist, bias_new, num_heads: int):
+    """Plain version of K5: attend_plain with f32 dots over layer
+    ``layer``'s K and V planes."""
+    _check_fused(q, k_new, v_new, cache, layer, bias_hist, bias_new,
+                 num_heads)
+    return attend_plain(q, k_new, v_new, cache[layer, 0].float(),
+                        cache[layer, 1].float(), bias_hist, bias_new,
+                        num_heads, torch.float32)
+
+
+def step_attention_fused(q: torch.Tensor, k_new: torch.Tensor,
+                         v_new: torch.Tensor, cache: torch.Tensor,
+                         layer: int, bias_hist: torch.Tensor,
+                         bias_new: torch.Tensor,
+                         num_heads: int) -> torch.Tensor:
+    """One-position cached self-attention for one layer.
+
+    q, k_new, v_new: [B, N, F] position t's projections (not in the
+    cache); cache: [L, 2, B, N, Mc, F] in q's dtype, history in slots
+    [0, t); layer: Python int; bias_hist: [Mc, H] f32 (relpos row, slots
+    >= t masked); bias_new: [1, H] f32 (position t's self bias). Returns
+    [B, N, F] in q's dtype."""
+    _check_fused(q, k_new, v_new, cache, layer, bias_hist, bias_new,
+                 num_heads)
+    tensors = (q, k_new, v_new, cache, bias_hist, bias_new)
+    if device_kind(*tensors) == "cpu":
+        return step_attention_fused_plain(q, k_new, v_new, cache, layer,
+                                          bias_hist, bias_new, num_heads)
+    B, N, F = q.shape
+    Mc = cache.shape[4]
+    require(q.dtype in (torch.bfloat16, torch.float32)
+            and all(x.dtype == q.dtype for x in (k_new, v_new, cache)),
+            f"q, k_new, v_new and cache must share dtype bf16 or f32, got "
+            f"{[x.dtype for x in (q, k_new, v_new, cache)]}")
+    require(bias_hist.dtype == torch.float32
+            and bias_new.dtype == torch.float32, "biases must be float32")
+    require(all(x.is_contiguous() for x in tensors),
+            "step_attention_fused needs contiguous tensors")
+    attn = torch.empty_like(q)
+    fn = kernel_fn("step_attention_fused", "step_attention_fused", 7, 6)
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                cache.data_ptr(), bias_hist.data_ptr(), bias_new.data_ptr(),
+                attn.data_ptr(), B * N, Mc, F, num_heads, layer,
+                int(q.dtype == torch.float32),
+                torch.cuda.current_stream().cuda_stream)
+    check_launch(rc, "step_attention_fused")
+    return attn

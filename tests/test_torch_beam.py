@@ -141,15 +141,18 @@ def test_beam_outputs_are_valid_smtids_and_expand_like_jax():
     (dict(kv_cache_quant="int2"), ValueError),
     (dict(megarow=True, deferred=False), ValueError),
     (dict(megarow=True, cache_segments=4), ValueError),  # M=6: odd spans
-    (dict(cache_segments=4), NotImplementedError),  # reference: XLA path
+    # odd spans take the non-deferred path, which holds exact caches only
+    (dict(cache_segments=4, kv_cache_quant="int8"), ValueError),
     (dict(kvg_quant_xla=True), ValueError),
     (dict(ffn_int8=True), NotImplementedError),
-    (dict(megarow=False), NotImplementedError),
-    (dict(deferred=False), NotImplementedError),
+    # the deferred path's kvg_quant_xla is for int8 caches only
+    (dict(megarow=False, kv_cache_quant="int4", kvg_quant_xla=True),
+     ValueError),
+    (dict(deferred=False, kv_cache_quant="int8"), ValueError),
 ])
 def test_refuses_what_the_reference_refuses(world, kwargs, exc):
-    """Arguments are validated as the reference validates them; paths
-    that are not ported raise NotImplementedError."""
+    """Arguments are validated as the reference validates them; ffn_int8,
+    not ported yet, raises NotImplementedError."""
     args = dict(constrained=True, dtype=torch.float32, cache_segments=3,
                 device="cpu")
     args.update(kwargs)

@@ -31,7 +31,9 @@ def _run(code: str) -> subprocess.CompletedProcess:
 
 def test_no_jax_flax_or_reference_modules_imported():
     mods = _modules()
-    assert "ripor_tpu_torch.ops.megarow" in mods
+    assert {"ripor_tpu_torch.ops.megarow",
+            "ripor_tpu_torch.ops.step_attention",
+            "ripor_tpu_torch.ops.attend_reorder"} <= set(mods)
     r = _run(f"""
         import importlib, sys
         for m in {mods!r}:
@@ -75,8 +77,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     from ripor_tpu_torch.trie import build_trie
 
     cfg = ripor_small(M=8, K=8)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        make_beam_search_fn(cfg, 4)
+    for kw in ({}, dict(megarow=False), dict(deferred=False)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_beam_search_fn(cfg, 4, **kw)
     sd = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     codes = np.random.default_rng(0).integers(0, 8, (20, 8))
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -87,10 +90,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 def test_cpu_run_launches_no_kernel():
     from ripor_tpu_torch.data.tokenizer import HashTokenizer
-    from ripor_tpu_torch.models import init_params, ripor_small
+    from ripor_tpu_torch.decode.beam import make_beam_search_fn
+    from ripor_tpu_torch.models import RiporModel, init_params, ripor_small
     from ripor_tpu_torch.ops import KERNEL_LAUNCHES
     from ripor_tpu_torch.serve import RetrievalEngine, ServeConfig
-    from ripor_tpu_torch.trie import build_trie
+    from ripor_tpu_torch.trie import (build_trie, succinct_tables,
+                                      tables_to_torch)
 
     cfg = ripor_small(M=8, K=8)
     sd = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
@@ -104,4 +109,14 @@ def test_cpu_run_launches_no_kernel():
                         kv_cache_quant=quant), device="cpu")
         res = eng.retrieve_batch(["a query", "another one"])
         assert len(res) == 2 and all(len(r) == 4 for r in res)
+    model = RiporModel(cfg, device="cpu")
+    model.load_state_dict(sd)
+    tables = tables_to_torch(succinct_tables(build_trie(codes, 8)), "cpu")
+    ids = np.ones((2, 5), np.int64)
+    for kw in (dict(megarow=False, kv_cache_quant="int8"),
+               dict(deferred=False)):
+        fn = make_beam_search_fn(cfg, 4, dtype=torch.float32, device="cpu",
+                                 **kw)
+        scores, _, _ = fn(model, ids, np.ones_like(ids), tables)
+        assert scores.device.type == "cpu"
     assert KERNEL_LAUNCHES == before

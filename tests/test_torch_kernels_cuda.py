@@ -1,15 +1,22 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
-card. Marked ``cuda``: without a CUDA device every test here skips. On the
-card: ``python -m pytest tests/test_torch_kernels_cuda.py -q`` (the main-path
-shapes are checked by chip_smoke.py)."""
+"""The port's CUDA kernels (K1-K6) against their plain PyTorch
+versions, on the card. Marked ``cuda``: without a CUDA device every test
+here skips. On the card: ``python -m pytest
+tests/test_torch_kernels_cuda.py -q`` (the main-path shapes are checked
+by chip_smoke.py)."""
 import pytest
 import torch
 
 from ripor_tpu_torch.ops import (KERNEL_LAUNCHES, beam_gather_rows,
-                                 beam_gather_rows_plain,
+                                 beam_gather_rows_plain, beam_gather_update,
+                                 beam_gather_update_plain,
                                  quantize_rows_int4_plain,
                                  quantize_rows_plain, reorder_cache_all,
-                                 reorder_cache_all_plain, step_attention_seq,
+                                 reorder_cache_all_plain,
+                                 step_attend_reorder,
+                                 step_attend_reorder_plain,
+                                 step_attention_fused,
+                                 step_attention_fused_plain,
+                                 step_attention_seq,
                                  step_attention_seq_plain)
 
 pytestmark = pytest.mark.cuda
@@ -66,4 +73,70 @@ def test_kernels_match_plain(quant, gen):
     assert torch.equal(beam_gather_rows(x, src),
                        beam_gather_rows_plain(x, src))
     torch.cuda.synchronize()
-    assert all(KERNEL_LAUNCHES[k] == before[k] + 1 for k in before)
+    megarow = ("reorder_cache_all", "step_attention_seq", "beam_gather_rows")
+    assert all(KERNEL_LAUNCHES[k] == before[k] + 1 for k in megarow)
+
+
+def _merged_cache(quant, gen):
+    """A layer-major [L, B, N, Mc, RW] cache of valid rows."""
+    return _cache(quant, gen).permute(2, 0, 1, 3, 4).contiguous()
+
+
+@pytest.mark.parametrize("t,write_back", [(0, True), (5, True), (5, False)])
+@pytest.mark.parametrize("quant,kvg_q8", [(None, False), ("int8", False),
+                                          ("int8", True), ("int4", False)])
+def test_step_attend_reorder_matches_plain(quant, kvg_q8, t, write_back,
+                                           gen):
+    cache = _merged_cache(quant, gen)
+    src = torch.randint(0, N, (B, N), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    kvg = torch.randn(B, N, L, 2 * F, generator=gen, device="cuda")
+    kvg = (quantize_rows_plain(kvg, H) if kvg_q8
+           else kvg.bfloat16()).reshape(B, N, -1)
+    q = torch.randn(B, N, F, generator=gen, device="cuda").bfloat16()
+    kv_new = torch.randn(B, N, 2 * F, generator=gen,
+                         device="cuda").bfloat16()
+    bias_hist = torch.randn(Mc, H, generator=gen, device="cuda")
+    bias_hist[t:] = -1e30
+    bias_new = torch.randn(1, H, generator=gen, device="cuda")
+    before = KERNEL_LAUNCHES["step_attend_reorder"]
+    a, da = step_attend_reorder(q, kv_new, kvg, cache, torch.zeros_like(cache),
+                                src, 1, t, bias_hist, bias_new, H,
+                                write_back=write_back)
+    b, db = step_attend_reorder_plain(q, kv_new, kvg, cache,
+                                      torch.zeros_like(cache), src, 1, t,
+                                      bias_hist, bias_new, H,
+                                      write_back=write_back)
+    torch.cuda.synchronize()
+    assert torch.equal(da, db)
+    torch.testing.assert_close(a.float(), b.float(), rtol=2e-2, atol=2e-2)
+    assert KERNEL_LAUNCHES["step_attend_reorder"] == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t", [0, 5, Mc - 1])
+def test_non_deferred_kernels_match_plain(dtype, t, gen):
+    cache = torch.randn(L, 2, B, N, Mc, F, generator=gen, device="cuda",
+                        dtype=dtype)
+    q, k_new, v_new = (torch.randn(B, N, F, generator=gen, device="cuda",
+                                   dtype=dtype) for _ in range(3))
+    bias_hist = torch.randn(Mc, H, generator=gen, device="cuda")
+    bias_hist[t:] = -1e30
+    bias_new = torch.randn(1, H, generator=gen, device="cuda")
+    before = dict(KERNEL_LAUNCHES)
+    args = (q, k_new, v_new, cache, 2, bias_hist, bias_new, H)
+    a, b = step_attention_fused(*args), step_attention_fused_plain(*args)
+    torch.testing.assert_close(a.float(), b.float(), rtol=2e-2, atol=2e-2)
+    G = L * 2 * B
+    flat = cache.view(G, N, Mc, F)
+    src = torch.randint(0, N, (G, N), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    kvg = flat[:, :, 0].contiguous()
+    got = beam_gather_update(flat, kvg, src, t, torch.empty_like(flat))
+    want = beam_gather_update_plain(flat, kvg, src, t, torch.empty_like(flat))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert KERNEL_LAUNCHES["step_attention_fused"] == (
+        before["step_attention_fused"] + 1)
+    assert KERNEL_LAUNCHES["beam_gather_update"] == (
+        before["beam_gather_update"] + 1)
