@@ -11,12 +11,16 @@ nonzero and no result line is printed:
      shapes its path gives it (t5-base widths, B=8, N=1000, L=12, Mc in
      {8, 32}): K1-K3 with exact bf16, int8 and int4 rows; K4 with int4,
      int8 (exact and pre-quantized kvg rows) and bf16 rows; K5 and K6 in
-     bf16. Time kernel, plain version and, for the gathers, one PyTorch
-     advanced-indexing call (a yardstick the port never uses);
+     bf16; K8 in bf16 and f32 at two slots t; K7 in bf16, int8 and on
+     narrow blocks. Time kernel, plain version and one PyTorch call of
+     the same function where there is one (advanced indexing for the
+     gathers, scaled_dot_product_attention for K8): a yardstick the port
+     never uses;
   3. agreement on a small input: the port's beam search through the
      kernels on the card against its plain path on the CPU (the path the
      CPU tests hold against the JAX package), on the megarow and deferred
-     paths (exact, int8, int4 caches) and the non-deferred path;
+     paths (exact, int8, int4 caches), the non-deferred path and the
+     write-then-attend path;
   4. the main path: RetrievalEngine at ripor_base(M=32, K=256) with random
      bf16 weights from a seed, a 100,000-doc random-code corpus, beam =
      topk = 1000, on the megarow path with int4, exact bf16 and int8
@@ -25,8 +29,9 @@ nonzero and no result line is printed:
   5. inside phase 4's int4 run, one B=8 decode under torch.profiler:
      device time by kernel and the device's busy share of the wall time;
   6. the deferred per-layer path (make_beam_search_fn(..., megarow=False);
-     int4, int8 and bf16 caches) and the non-deferred path
-     (deferred=False; bf16) at phase 4's model, corpus and queries: one
+     int4, int8 and bf16 caches), the non-deferred path (deferred=False;
+     bf16) and the write-then-attend path (use_pallas_gather=False; bf16)
+     at phase 4's model, corpus and queries: one
      B=8 search each, after one warm-up search, with phase 4's checks and
      launch counters zeroed just before and read just after; two more
      searches for the time (median of three), and the same profile as
@@ -336,6 +341,99 @@ def non_deferred_checks(results, g):
         torch.cuda.empty_cache()
 
 
+def write_attend_checks(results, g):
+    """Phase 2, the write-then-attend kernels against their plain
+    versions: K8 over one layer's K and V planes [B, N, Mc, F] (bf16
+    within 2e-2, f32 within 1e-4) at t = Mc - 1 and a t in the middle
+    (slots above t masked), and K7 over the [L*2*B, N, Mc, F] view of the
+    stacked cache (bf16, int8 and a narrow int8 block: bit-equal)."""
+    import torch
+    import torch.nn.functional as tf
+    from ripor_tpu_torch.ops import (beam_gather_blocks,
+                                     beam_gather_blocks_plain,
+                                     step_attention, step_attention_plain)
+    D = F // H
+    for Mc in (8, 32):
+        for dtype, name, tol in ((torch.bfloat16, "bf16", 2e-2),
+                                 (torch.float32, "f32", 1e-4)):
+            kv = torch.randn(2, B, N, Mc, F, generator=g, device="cuda",
+                             dtype=dtype)
+            q = torch.randn(B, N, F, generator=g, device="cuda", dtype=dtype)
+            for t in (Mc - 1, Mc // 2):
+                tag = f"{name} Mc={Mc} t={t}"
+                bias = torch.randn(Mc, H, generator=g, device="cuda")
+                bias[t + 1:] = -1e30
+                args = (q, kv[0], kv[1], bias, H)
+                got = step_attention(*args)
+                want = step_attention_plain(*args)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                check(torch.allclose(got.float(), want.float(), rtol=tol,
+                                     atol=tol),
+                      f"step_attention {tag}: max abs err {err}")
+                # the yardstick: one SDPA call on [B*N, H, 1|Mc, D] views,
+                # the bias as an [H, 1, Mc] mask, no scaling (T5)
+                qh = q.view(B * N, 1, H, D).transpose(1, 2)
+                kh = kv[0].view(B * N, Mc, H, D).transpose(1, 2)
+                vh = kv[1].view(B * N, Mc, H, D).transpose(1, 2)
+                mask = bias.T.to(dtype).reshape(1, H, 1, Mc)
+
+                def sdpa():
+                    return tf.scaled_dot_product_attention(
+                        qh, kh, vh, attn_mask=mask, scale=1.0)
+                lib = sdpa().transpose(1, 2).reshape(B, N, F)
+                rec = dict(ms=cuda_ms(lambda: step_attention(*args), 10),
+                           plain_ms=cuda_ms(
+                               lambda: step_attention_plain(*args), 3),
+                           library_ms=cuda_ms(sdpa, 10), max_abs_err=err,
+                           library_max_abs_err=(
+                               lib.float() - want.float()).abs().max().item())
+                rec["bound_ms"], rec["bound_by"] = bound(
+                    nbytes(q, kv, bias, got), 4.0 * B * N * Mc * F)
+                results.append(("step_attention", tag, rec))
+                print("kernel_check", json.dumps({
+                    "kernel": "step_attention", "case": tag, **rec}))
+                del got, want, lib
+            del kv, q
+            torch.cuda.empty_cache()
+
+    G = L * 2 * B
+    for dtype, Mc, C in ((torch.bfloat16, 8, F), (torch.bfloat16, 32, F),
+                         (torch.int8, 32, F), (torch.int8, 3, 13)):
+        tag = (f"{'bf16' if dtype == torch.bfloat16 else 'int8'} Mc={Mc}"
+               + ("" if C == F else f" C={C}"))
+        cache = (torch.randn(G, N, Mc, C, generator=g, device="cuda",
+                             dtype=dtype) if dtype.is_floating_point else
+                 torch.randint(-128, 128, (G, N, Mc, C), generator=g,
+                               device="cuda", dtype=dtype))
+        src = torch.randint(0, N, (B, N), generator=g, device="cuda",
+                            dtype=torch.int32)
+        src_rep = src.repeat(L * 2, 1)
+        out = torch.empty_like(cache)
+        beam_gather_blocks(cache, src_rep, out)
+        ref = beam_gather_blocks_plain(cache, src_rep)
+        torch.cuda.synchronize()
+        check(torch.equal(out, ref), f"beam_gather_blocks {tag}")
+        del ref
+        gidx = torch.arange(G, device="cuda")[:, None]
+        lsrc = src_rep.long()
+        rec = dict(ms=cuda_ms(lambda: beam_gather_blocks(cache, src_rep,
+                                                         out), 10),
+                   plain_ms=cuda_ms(lambda: beam_gather_blocks_plain(
+                       cache, src_rep, out), 2),
+                   library_ms=cuda_ms(lambda: cache[gidx, lsrc], 2),
+                   max_abs_err=0.0)
+        slab = Mc * C * cache.element_size()
+        rec["bound_ms"], rec["bound_by"] = bound(
+            L * 2 * unique_sources(src) * slab + G * N * slab
+            + nbytes(src_rep))
+        results.append(("beam_gather_blocks", tag, rec))
+        print("kernel_check", json.dumps({
+            "kernel": "beam_gather_blocks", "case": tag, **rec}))
+        del cache, out
+        torch.cuda.empty_cache()
+
+
 SMALL_RUNS = (                   # (path, make_beam_search_fn kwargs)
     ("megarow", dict(kv_cache_quant=None)),
     ("megarow", dict(kv_cache_quant="int8")),
@@ -346,6 +444,7 @@ SMALL_RUNS = (                   # (path, make_beam_search_fn kwargs)
                       kvg_quant_xla=True)),
     ("deferred", dict(megarow=False, kv_cache_quant="int4")),
     ("non_deferred", dict(deferred=False)),
+    ("write_attend", dict(use_pallas_gather=False)),
 )
 
 
@@ -570,12 +669,14 @@ OTHER_PATHS = (
     ("non-deferred bf16", dict(deferred=False),
      {"step_attention_fused": M * L, "beam_gather_rows": M - 1,
       "beam_gather_update": M - 1}),
+    ("write-then-attend bf16", dict(use_pallas_gather=False),
+     {"step_attention": M * L, "beam_gather_blocks": M - 1}),
 )
 
 
 def other_paths(world, launches):
-    """Phase 6: one B=8 beam-1000 search on each of the deferred per-layer
-    and non-deferred paths at phase 4's model, corpus and queries (after
+    """Phase 6: one B=8 beam-1000 search on each of the deferred
+    per-layer, non-deferred and write-then-attend paths at phase 4's model, corpus and queries (after
     one warm-up search), with phase 4's checks and a profile; two more
     searches time it (median of three). Counters are zeroed just before
     the first timed search and read just after; it must show exactly its
@@ -662,6 +763,7 @@ def main():
     megarow_checks(results, g)
     deferred_checks(results, g)
     non_deferred_checks(results, g)
+    write_attend_checks(results, g)
     small_agreement()
     world = make_world()
     launches = {}
@@ -683,6 +785,10 @@ def main():
         "step_attention_fused": ("ripor_tpu/ops/step_attention.py:165",
                                  "bf16 Mc=32", phase6),
         "beam_gather_update": ("ripor_tpu/ops/beam_gather.py:181",
+                               "bf16 Mc=32", phase6),
+        "step_attention": ("ripor_tpu/ops/step_attention.py:67",
+                           "bf16 Mc=32 t=31", phase6),
+        "beam_gather_blocks": ("ripor_tpu/ops/beam_gather.py:93",
                                "bf16 Mc=32", phase6),
     }
     kernels = []

@@ -1,6 +1,7 @@
 // One-query attention of one beam over its cache slots, as device code
-// shared by the three step-attention kernels: K2 (step_attention_seq.cu),
-// K4 (step_attend_reorder.cu) and K5 (step_attention_fused.cu).
+// shared by the four step-attention kernels: K2 (step_attention_seq.cu),
+// K4 (step_attend_reorder.cu), K5 (step_attention_fused.cu) and K8
+// (step_attention.cu).
 //
 // The math is the reference's: per head h, scores over the Mc cache slots
 // plus position t's own key, softmax over the Mc + 1 positions in f32 with
@@ -10,10 +11,14 @@
 // bf16 before its f32 sum; with RB = false everything stays f32. Quantized
 // rows carry per-(slot, head) power-of-2 exponents (SCALED = true): the
 // K exponent scales the slot's score, the V exponent its probability.
+// Two switches serve K8, whose position t is already in the cache: with
+// NEW = false there is no separate position-t term (the softmax runs over
+// the Mc slots alone), and RP = true rounds the probabilities (only them)
+// to bf16; RP defaults to RB.
 //
 // The caller stages in shared memory qs[F] (q, already rounded to the dot
-// dtype) and kvs[2F] (position t's K|V as floats), and hands over the
-// scratch sc[(Mc+1)*H], pe[Mc*H], pn[H]. Rows are read through an
+// dtype) and, with NEW, kvs[2F] (position t's K|V as floats), and hands
+// over the scratch sc[(Mc+1)*H], pe[Mc*H], pn[H]. Rows are read through an
 // accessor (the Rows template argument) with k(m, f), v(m, f) and, when
 // SCALED, ek(m, h) / ev(m, h): that is where the kernels differ (merged
 // K|V rows, separate K and V planes, a slot taken from elsewhere).
@@ -60,7 +65,8 @@ __host__ __device__ constexpr size_t attend_scratch_floats(int Mc, int H) {
 
 // Attention of one beam; writes out[0, F) in OutT. Every thread of the
 // block must call it (it holds block-wide barriers).
-template <bool RB, bool SCALED, typename OutT, class Rows>
+template <bool RB, bool SCALED, typename OutT, class Rows, bool NEW = true,
+          bool RP = RB>
 __device__ void attend_beam(const Rows& rows, const float* qs,
                             const float* kvs, const float* bias_hist,
                             const float* bias_new, int Mc, int F, int H,
@@ -68,9 +74,10 @@ __device__ void attend_beam(const Rows& rows, const float* qs,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nthreads = blockDim.x, nwarps = nthreads >> 5;
   const int D = F / H;
+  const int P = NEW ? Mc + 1 : Mc;  // positions in the softmax
 
   // scores: pair p = (slot m, head h); m == Mc is position t's own key
-  for (int p = warp; p < (Mc + 1) * H; p += nwarps) {
+  for (int p = warp; p < P * H; p += nwarps) {
     const int m = p / H, h = p - m * H;
     float acc = 0.f;
     if (m < Mc) {
@@ -92,19 +99,19 @@ __device__ void attend_beam(const Rows& rows, const float* qs,
   }
   __syncthreads();
 
-  // softmax over the Mc + 1 positions, one warp per head
+  // softmax over the P positions, one warp per head
   for (int h = warp; h < H; h += nwarps) {
     float mx = -INFINITY;
-    for (int m = lane; m <= Mc; m += 32) mx = fmaxf(mx, sc[m * H + h]);
+    for (int m = lane; m < P; m += 32) mx = fmaxf(mx, sc[m * H + h]);
     mx = warp_max(mx);
     float s = 0.f;
-    for (int m = lane; m <= Mc; m += 32) {
+    for (int m = lane; m < P; m += 32) {
       const float e = expf(sc[m * H + h] - mx);
       sc[m * H + h] = e;
       s += e;
     }
     s = warp_sum(s);
-    for (int m = lane; m <= Mc; m += 32) sc[m * H + h] = sc[m * H + h] / s;
+    for (int m = lane; m < P; m += 32) sc[m * H + h] = sc[m * H + h] / s;
   }
   __syncthreads();
 
@@ -114,9 +121,11 @@ __device__ void attend_beam(const Rows& rows, const float* qs,
       const int m = p / H, h = p - m * H;
       w *= pow2i(rows.ev(m, h));
     }
-    pe[p] = rd<RB>(w);
+    pe[p] = rd<RB || RP>(w);
   }
-  for (int h = tid; h < H; h += nthreads) pn[h] = rd<RB>(sc[Mc * H + h]);
+  if (NEW)
+    for (int h = tid; h < H; h += nthreads)
+      pn[h] = rd<RB || RP>(sc[Mc * H + h]);
   __syncthreads();
 
   // weighted V sum: each thread owns columns f, walks the slots
@@ -125,10 +134,27 @@ __device__ void attend_beam(const Rows& rows, const float* qs,
     float acc = 0.f;
     for (int m = 0; m < Mc; ++m)
       acc += rd<RB>(pe[m * H + h] * rows.v(m, f));
-    acc += pn[h] * kvs[F + f];
+    if (NEW) acc += pn[h] * kvs[F + f];
     out[f] = from_f<OutT>(acc);
   }
 }
+
+// one beam's K and V planes of one layer, [Mc, F] each, in T (exact
+// rows; K5 and K8)
+template <typename T>
+struct PlaneRows {
+  const T* kp;
+  const T* vp;
+  int F;
+  __device__ __forceinline__ float k(int m, int f) const {
+    return to_f(kp[static_cast<long long>(m) * F + f]);
+  }
+  __device__ __forceinline__ float v(int m, int f) const {
+    return to_f(vp[static_cast<long long>(m) * F + f]);
+  }
+  __device__ __forceinline__ int ek(int, int) const { return 0; }
+  __device__ __forceinline__ int ev(int, int) const { return 0; }
+};
 
 // Rows of the K|V-merged caches (megarow [.., Mc, RW] and the per-layer
 // merged cache): KIND 0 exact rows of T (RW = 2F: K then V), 1 int8 rows

@@ -35,22 +35,6 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// one beam's K and V planes of one layer, [Mc, F] each
-template <typename T>
-struct PlaneRows {
-  const T* kp;
-  const T* vp;
-  int F;
-  __device__ __forceinline__ float k(int m, int f) const {
-    return to_f(kp[static_cast<long long>(m) * F + f]);
-  }
-  __device__ __forceinline__ float v(int m, int f) const {
-    return to_f(vp[static_cast<long long>(m) * F + f]);
-  }
-  __device__ __forceinline__ int ek(int, int) const { return 0; }
-  __device__ __forceinline__ int ev(int, int) const { return 0; }
-};
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 step_attention_fused_kernel(const T* __restrict__ q,

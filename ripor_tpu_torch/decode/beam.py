@@ -1,7 +1,7 @@
 """Trie-constrained beam search, in PyTorch.
 
-Port of ripor_tpu/decode/beam.py (``make_beam_search_fn``) on its three
-kernel decode paths. Per step, after the projections of each layer:
+Port of ripor_tpu/decode/beam.py (``make_beam_search_fn``) on its four
+decode paths. Per step, after the projections of each layer:
 
   megarow (default when the segment spans are even):
     K1 reorder of all layers (pending beam permutation + slot t-1 insert)
@@ -10,16 +10,19 @@ kernel decode paths. Per step, after the projections of each layer:
     per layer K4: reorder of that layer + slot t-1 insert + attention
   non-deferred (deferred=False; the default when a span is odd):
     per layer K5 step attention over the stacked cache
+  write-then-attend (use_pallas_gather=False, the reference's XLA path):
+    per layer k/v written at slot t of the stacked cache, then K8
 
   -> cross-attention, FFN -> codebook-head logits -> trie mask -> top-k
   -> megarow, deferred: K3 gather of this step's K|V rows into the new
      beam order; non-deferred: K3 + K6, the cache reorder with the slot t
-     insert (every step but the last)
+     insert; write-then-attend: K7, the cache reorder (both every step
+     but the last)
 
 The two deferred paths carry the pending reorder as (src_prev, kvg): the
 next step completes it while copying the cache into the other buffer of a
-pair that is swapped by reference each step; the non-deferred path swaps
-its pair at each reorder. The whole loop issues no host sync (no
+pair that is swapped by reference each step; the other two paths swap
+their pair at each reorder. The whole loop issues no host sync (no
 ``.item()``, no tensor in a Python condition), so on the card the host
 runs ahead and the device never waits for it.
 
@@ -36,7 +39,8 @@ import torch
 
 from ripor_tpu_torch.models.config import RiporConfig
 from ripor_tpu_torch.ops.attend_reorder import quantize_rows_plain
-from ripor_tpu_torch.ops.beam_gather import (beam_gather_rows,
+from ripor_tpu_torch.ops.beam_gather import (beam_gather_blocks,
+                                             beam_gather_rows,
                                              beam_gather_update)
 
 NEG_INF = -1e30
@@ -129,14 +133,19 @@ def _segment_bounds(M: int, cache_segments: int):
 
 
 def _reorder_cache(cache, src, kv_new, t: int, out):
-    """Non-deferred cache reorder: out = cache gathered along the beam axis
-    by src [B, N], with slot t := this step's K/V rows in the new beam
-    order. cache, out: [L, 2, B, N, Mc, F]; kv_new: [L, 2, B, N, F]. K3
-    permutes kv_new, then K6 moves the cache, both over the L*2*B planes
-    with src tiled."""
+    """Reorder of the stacked cache: out = cache gathered along the beam
+    axis by src [B, N], over the L*2*B planes with src tiled. cache, out:
+    [L, 2, B, N, Mc, F]. Non-deferred path: kv_new [L, 2, B, N, F], and
+    slot t := this step's K/V rows in the new beam order (K3 permutes
+    kv_new, then K6 moves the cache). Write-then-attend path: kv_new is
+    None, slot t is already written, and K7 moves the cache."""
     L, two, B, N, Mc, F = cache.shape
     G = L * two * B
     src_rep = src.repeat(L * two, 1)
+    if kv_new is None:
+        beam_gather_blocks(cache.view(G, N, Mc, F), src_rep,
+                           out.view(G, N, Mc, F))
+        return out
     kvg = beam_gather_rows(kv_new.reshape(G, N, F), src_rep)
     beam_gather_update(cache.view(G, N, Mc, F), kvg, src_rep, t,
                        out.view(G, N, Mc, F))
@@ -157,6 +166,7 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
                         constrained: bool = True,
                         max_steps: Optional[int] = None,
                         dtype=torch.bfloat16,
+                        use_pallas_gather: Optional[bool] = True,
                         cache_segments: int = 4,
                         deferred: Optional[bool] = None,
                         kv_cache_int8: bool = False,
@@ -177,10 +187,16 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
     and validates them, so the same calls are accepted and refused.
     ``cache_segments``: the cache grows over that many equal step spans
     (M/S, 2M/S, ..., M slots), which cuts reorder and attention bytes.
-    ``megarow`` (default: on when every span is even and ``deferred`` is
-    not False) takes the megarow path; ``megarow=False`` with even spans
-    the deferred per-layer path; ``deferred=False``, or odd spans, the
-    non-deferred path, which holds exact caches only. ``kv_cache_quant``
+    ``use_pallas_gather`` (default True, on every device; None means
+    True) picks the reference's kernel paths; False its XLA path, here
+    the write-then-attend path (K8 + K7), which turns the megarow default
+    off and leaves ``deferred`` on by default only for a quantized cache.
+    ``megarow`` (default: on when every span is even, ``deferred`` is not
+    False and use_pallas_gather is on) takes the megarow path;
+    ``megarow=False`` with even spans the deferred per-layer path;
+    ``deferred=False``, or odd spans, the non-deferred path (or, with
+    use_pallas_gather=False, the write-then-attend path), which holds
+    exact caches only. ``kv_cache_quant``
     "int8"/"int4" (or kv_cache_int8=True) stores the cache quantized and
     needs a deferred path. On the megarow path K2 emits each step's rows
     already quantized (QFUSE), the only quantized megarow dataflow
@@ -189,13 +205,15 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
     them, unless ``kvg_quant_xla`` (int8 caches only) quantizes them once
     per step before the gather; on the megarow path ``kvg_quant_xla`` is
     subsumed by QFUSE and has no effect. ``ffn_int8=True`` raises
-    NotImplementedError (not ported yet).
+    the reference's ValueErrors, else NotImplementedError (not ported
+    yet).
 
-    The reference's TPU knobs — use_pallas_gather, the RIPOR_* switches,
-    chunk and layer-group picks, the ceil-8 slot rounding and the beam
-    padding — have no counterpart: they served the TPU's tiling and VMEM.
-    The kernel paths are the port's only paths, as use_pallas_gather=True
-    is the reference's.
+    The reference's other TPU knobs — the RIPOR_* switches, chunk and
+    layer-group picks, the ceil-8 slot rounding and the beam padding —
+    have no counterpart: they served the TPU's tiling and VMEM. Where the
+    reference's default for use_pallas_gather follows the backend, the
+    port's is True everywhere, so a call without it keeps its kernel
+    path.
     """
     M = max_steps or cfg.M
     N = num_beams
@@ -206,18 +224,20 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
         raise ValueError(f"kv_cache_quant must be int8/int4/None, "
                          f"got {kv_cache_quant!r}")
     quant = kv_cache_quant or ("int8" if kv_cache_int8 else None)
+    if use_pallas_gather is None:
+        use_pallas_gather = True
     bounds = _segment_bounds(M, cache_segments)
     spans_even = all((hi - lo) % 2 == 0
                      for lo, hi in zip([0] + bounds[:-1], bounds))
     if megarow is None:
-        megarow = spans_even and deferred is not False
+        megarow = use_pallas_gather and spans_even and deferred is not False
     if megarow:
         if deferred is False:
             raise ValueError("megarow=True implies the deferred path — "
                              "drop deferred=False")
         deferred = True
     if deferred is None:
-        deferred = spans_even
+        deferred = (use_pallas_gather or quant is not None) and spans_even
     if deferred and not spans_even:
         raise ValueError(
             f"deferred reorder needs even segment spans; M={M} with "
@@ -237,10 +257,18 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
         raise ValueError("kvg_quant_xla needs a quantized cache "
                          "(kv_cache_quant='int8'/'int4')")
     if ffn_int8:
+        if not deferred:
+            raise ValueError("ffn_int8 requires the deferred/megarow decode "
+                             "path (the only paths that thread ffn_q)")
+        if cfg.t5.is_gated:
+            raise ValueError("ffn_int8 supports only the non-gated T5 v1.0 "
+                             "FFN")
         raise NotImplementedError(f"ffn_int8 {_LATER}")
     # the deferred per-layer path with int8 rows quantized before the
     # gather (validated above: an int8 cache)
     kvg_q8 = bool(kvg_quant_xla) and not megarow
+    # the reference's XLA path: slot t written before the attention
+    write_attend = not deferred and not use_pallas_gather
     dev = resolve_device(device)
 
     def select(beam_scores, state, codes, logits, tables, t: int):
@@ -332,6 +360,10 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
                         tokens, cache, spare, src_prev, kvg, *ctx, t,
                         write_back=not last)
                     cache, spare = spare, cache
+                elif write_attend:
+                    logits, cache = model.decode_step_write_attend(
+                        tokens, cache, *ctx, t)
+                    kv_new = None
                 else:
                     logits, kv_new = model.decode_step(tokens, cache, *ctx,
                                                        t)
@@ -362,17 +394,21 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
 
 def beam_search(cfg: RiporConfig, params, input_ids, attention_mask,
                 trie=None, num_beams: int = 10, dtype=torch.bfloat16,
-                device=None) -> BeamSearchOutput:
+                device=None,
+                use_pallas_gather: Optional[bool] = True) -> BeamSearchOutput:
     """Convenience wrapper: ``params`` is a state_dict (models/convert.py);
     builds the model and the search per call (hot paths should keep
-    make_beam_search_fn's function and the model)."""
+    make_beam_search_fn's function and the model). ``use_pallas_gather``
+    as in make_beam_search_fn (the reference's wrapper follows the
+    backend: False on a CPU)."""
     from ripor_tpu_torch.models.ripor import RiporModel
     from ripor_tpu_torch.trie.succinct import (dummy_tables, succinct_tables,
                                                tables_to_torch)
     dev = resolve_device(device)
     constrained = trie is not None
     fn = make_beam_search_fn(cfg, num_beams, constrained=constrained,
-                             dtype=dtype, device=dev)
+                             dtype=dtype, use_pallas_gather=use_pallas_gather,
+                             device=dev)
     model = RiporModel(cfg, dtype=dtype, device=dev)
     model.load_state_dict(params)
     tables = tables_to_torch(

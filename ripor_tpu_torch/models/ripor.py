@@ -147,3 +147,14 @@ class RiporModel(nn.Module):
             self._step_input(tokens, t), cache, cross_kv, enc_bias,
             self_bias, t)
         return self._step_logits(hidden, t), kv_new
+
+    def decode_step_write_attend(self, tokens, cache, cross_kv: CrossKV,
+                                 enc_bias, self_bias, t: int):
+        """One write-then-attend beam decode step over the stacked cache
+        (Decoder.decode_step_write_attend; the reference's decode_step on
+        its XLA form): slot t is written in place. Returns (logits,
+        cache)."""
+        hidden, cache = self.decoder.decode_step_write_attend(
+            self._step_input(tokens, t), cache, cross_kv, enc_bias,
+            self_bias, t)
+        return self._step_logits(hidden, t), cache

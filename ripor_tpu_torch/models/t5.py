@@ -1,11 +1,14 @@
 """T5 encoder / decoder stacks in PyTorch, with the beam decode steps.
 
 Port of ripor_tpu/models/t5.py: the full-sequence encoder and decoder, and
-the decoder's three beam decode steps, one per KV cache layout:
-  megarow       [B, N, L, Mc, RW]     K1 + K2 (ops/megarow.py)
-  deferred      [L, B, N, Mc, RW]     K4 (ops/attend_reorder.py)
-  non-deferred  [L, 2, B, N, Mc, F]   K5 (ops/step_attention.py); the beam
-                                      loop's reorder inserts the new k/v
+the decoder's four beam decode steps:
+  megarow            [B, N, L, Mc, RW]    K1 + K2 (ops/megarow.py)
+  deferred           [L, B, N, Mc, RW]    K4 (ops/attend_reorder.py)
+  non-deferred       [L, 2, B, N, Mc, F]  K5 (ops/step_attention.py); the
+                                          beam loop's reorder inserts the
+                                          new k/v
+  write-then-attend  [L, 2, B, N, Mc, F]  the new k/v written at slot t,
+                                          then K8 (ops/step_attention.py)
 Beams are a first-class axis and cross-attention reads the unexpanded
 encoder K/V [B, S, H, D].
 """
@@ -29,7 +32,8 @@ from ripor_tpu_torch.models.layers import (
 from ripor_tpu_torch.ops.attend_reorder import (row_width,
                                                  step_attend_reorder)
 from ripor_tpu_torch.ops.megarow import reorder_cache_all, step_attention_seq
-from ripor_tpu_torch.ops.step_attention import step_attention_fused
+from ripor_tpu_torch.ops.step_attention import (step_attention,
+                                                 step_attention_fused)
 
 CrossKV = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -290,3 +294,27 @@ class Decoder(nn.Module):
             x = layer.step_finish_with_attn(x, attn, enc_k, enc_v, enc_bias)
         return self.final_norm(x), torch.stack([torch.stack(ks),
                                                 torch.stack(vs)], dim=1)
+
+    def decode_step_write_attend(self, x, cache, cross_kv: CrossKV, enc_bias,
+                                 self_bias_full, t: int):
+        """One write-then-attend decode step, the reference's
+        Decoder.decode_step on its XLA form (step_attn_impl="xla"): each
+        layer writes position t's k and v in place into slot t of the
+        stacked cache [L, 2, B, N, Mc, F], then runs K8 over the layer's K
+        and V planes with slots [0, t] visible.
+
+        Returns (hidden [B, N, d], cache) — the same cache, written."""
+        cache_len = cache.shape[4]
+        bias_row = self_bias_full[:, t, :cache_len]             # [H, Mc]
+        key_pos = torch.arange(cache_len, device=bias_row.device)
+        bias = (bias_row + torch.where(key_pos <= t, 0.0, NEG_INF)
+                [None, :]).T.contiguous()                      # [Mc, H]
+        for l, (layer, (enc_k, enc_v)) in enumerate(zip(self.layers,
+                                                         cross_kv)):
+            q, k, v = layer.step_qkv(x)
+            cache[l, 0, :, :, t] = k
+            cache[l, 1, :, :, t] = v
+            attn = step_attention(q, cache[l, 0], cache[l, 1], bias,
+                                  self.cfg.num_heads)
+            x = layer.step_finish_with_attn(x, attn, enc_k, enc_v, enc_bias)
+        return self.final_norm(x), cache

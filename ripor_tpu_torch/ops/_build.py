@@ -40,6 +40,8 @@ KERNEL_LAUNCHES: Dict[str, int] = {
     "step_attend_reorder": 0,
     "step_attention_fused": 0,
     "beam_gather_update": 0,
+    "step_attention": 0,
+    "beam_gather_blocks": 0,
 }
 
 _lock = threading.Lock()

@@ -1,16 +1,24 @@
-"""One-position cached self-attention over the stacked KV cache.
+"""One-position cached self-attention: K5 and K8.
 
-Port of ripor_tpu/ops/step_attention.py::step_attention_fused (K5), the
-attention of the non-deferred decode: for one layer of the cache
-[L, 2, B, N, Mc, F] (K plane, then V plane), each beam's query attends to
-slots [0, t) of its history plus position t's own k/v, which are folded
-into the softmax instead of being written to the cache first (the beam
-reorder, ops/beam_gather.py::beam_gather_update, inserts them). All math
-is f32, whatever the input dtype, as in the reference's kernel. The CUDA
-kernel is csrc/step_attention_fused.cu.
+Port of ripor_tpu/ops/step_attention.py.
 
-The TPU kernel's chunk and block pipeline have no counterpart here: they
-served the TPU's VMEM.
+K5 ``step_attention_fused`` is the attention of the non-deferred decode:
+for one layer of the cache [L, 2, B, N, Mc, F] (K plane, then V plane),
+each beam's query attends to slots [0, t) of its history plus position
+t's own k/v, which are folded into the softmax instead of being written to
+the cache first (the beam reorder, ops/beam_gather.py::beam_gather_update,
+inserts them). All math is f32, whatever the input dtype, as in the
+reference's kernel. CUDA kernel: csrc/step_attention_fused.cu.
+
+K8 ``step_attention`` is the attention of the write-then-attend decode:
+position t's k/v are already written at slot t of separate K and V caches
+[B, N, Mc, F], and the softmax runs over the Mc slots alone. Its rounding
+points are the reference kernel's own: exact f32 k*q products, f32
+softmax, probabilities rounded to q's dtype, f32 weighted V sum, output in
+q's dtype. CUDA kernel: csrc/step_attention.cu.
+
+The TPU kernels' chunk, padding and block pipeline have no counterpart
+here: they served the TPU's VMEM.
 """
 from __future__ import annotations
 
@@ -90,3 +98,64 @@ def step_attention_fused(q: torch.Tensor, k_new: torch.Tensor,
                 torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "step_attention_fused")
     return attn
+
+
+def _check_step(q, cache_k, cache_v, bias, num_heads):
+    B, N, F = q.shape
+    require(cache_k.dim() == 4 and tuple(cache_k.shape[:2]) == (B, N)
+            and cache_k.shape[3] == F,
+            f"cache_k {tuple(cache_k.shape)} is not [B, N, Mc, F] for q "
+            f"{tuple(q.shape)}")
+    require(cache_v.shape == cache_k.shape,
+            f"cache_v {tuple(cache_v.shape)} != cache_k "
+            f"{tuple(cache_k.shape)}")
+    require(F % num_heads == 0, f"F={F} not divisible by H={num_heads}")
+    Mc = cache_k.shape[2]
+    require(tuple(bias.shape) == (Mc, num_heads),
+            f"bias {tuple(bias.shape)} != {(Mc, num_heads)}")
+
+
+def step_attention_plain(q, cache_k, cache_v, bias, num_heads: int):
+    """Plain version of K8, with its rounding points: f32 k*q products and
+    softmax, probabilities cast to q's dtype, f32 weighted V sum."""
+    _check_step(q, cache_k, cache_v, bias, num_heads)
+    B, N, F = q.shape
+    Mc = cache_k.shape[2]
+    H, D = num_heads, F // num_heads
+    kq = cache_k.float() * q.float()[:, :, None, :]        # [B, N, Mc, F]
+    scores = kq.reshape(B, N, Mc, H, D).sum(-1) + bias.float()
+    probs = torch.softmax(scores, dim=2).to(q.dtype)       # [B, N, Mc, H]
+    pe = probs.float().repeat_interleave(D, dim=-1)        # [B, N, Mc, F]
+    return (pe * cache_v.float()).sum(2).to(q.dtype)
+
+
+def step_attention(q: torch.Tensor, cache_k: torch.Tensor,
+                   cache_v: torch.Tensor, bias: torch.Tensor,
+                   num_heads: int) -> torch.Tensor:
+    """One-position cached self-attention over separate K and V caches.
+
+    q: [B, N, F]; cache_k, cache_v: [B, N, Mc, F] in q's dtype with the
+    current position's k/v already written at its slot; bias: [Mc, H] f32
+    (relpos bias + NEG_INF for slots > t). Returns [B, N, F] in q's
+    dtype."""
+    _check_step(q, cache_k, cache_v, bias, num_heads)
+    tensors = (q, cache_k, cache_v, bias)
+    if device_kind(*tensors) == "cpu":
+        return step_attention_plain(q, cache_k, cache_v, bias, num_heads)
+    B, N, F = q.shape
+    require(q.dtype in (torch.bfloat16, torch.float32)
+            and cache_k.dtype == q.dtype and cache_v.dtype == q.dtype,
+            f"q and the caches must share dtype bf16 or f32, got "
+            f"{[x.dtype for x in (q, cache_k, cache_v)]}")
+    require(bias.dtype == torch.float32, "bias must be float32")
+    require(all(x.is_contiguous() for x in tensors),
+            "step_attention needs contiguous tensors")
+    out = torch.empty_like(q)
+    fn = kernel_fn("step_attention", "step_attention", 5, 5)
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+                bias.data_ptr(), out.data_ptr(), B * N, cache_k.shape[2], F,
+                num_heads, int(q.dtype == torch.float32),
+                torch.cuda.current_stream().cuda_stream)
+    check_launch(rc, "step_attention")
+    return out

@@ -137,6 +137,34 @@ def test_beam_outputs_are_valid_smtids_and_expand_like_jax():
         np.testing.assert_array_equal(scores, jscores)
 
 
+def test_write_attend_beam_search_matches_oracle():
+    """The port's beam_search on the write-then-attend path against the
+    JAX package's slow oracle (a full teacher-forced forward per step and
+    a dict trie; tests/test_beam.py::test_beam_search_matches_oracle), at
+    that test's bars: scores within rtol 1e-4, equal sets up to ties."""
+    from test_beam import oracle_beam_search
+    from test_beam import setup as oracle_setup
+    cfg, jmodel, params, ids, mask, doc_codes, _ = oracle_setup()
+    num_beams = 4
+    out = beam_search(cfg, port_state_dict(params, cfg), np.array(ids),
+                      np.array(mask), trie=build_trie(doc_codes, cfg.K),
+                      num_beams=num_beams, dtype=torch.float32,
+                      device="cpu", use_pallas_gather=False)
+    oracle = oracle_beam_search(cfg, jmodel, params, ids, mask, doc_codes,
+                                num_beams)
+    for b in range(ids.shape[0]):
+        got = [(tuple(out.codes[b, n].tolist()), out.scores[b, n])
+               for n in range(num_beams) if out.scores[b, n] > -1e29]
+        want = oracle[b]
+        assert len(got) == len(want)
+        for (_, gs), (_, ws) in zip(got, want):
+            np.testing.assert_allclose(gs, ws, rtol=1e-4, atol=1e-4)
+        got_set = {gc for gc, _ in got}
+        want_set = {wc for wc, _ in want}
+        assert got_set == want_set or np.allclose(
+            sorted(s for _, s in got), sorted(s for _, s in want), rtol=1e-4)
+
+
 @pytest.mark.parametrize("kwargs,exc", [
     (dict(kv_cache_quant="int2"), ValueError),
     (dict(megarow=True, deferred=False), ValueError),

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K6) against their plain PyTorch
+"""The port's CUDA kernels (K1-K8) against their plain PyTorch
 versions, on the card. Marked ``cuda``: without a CUDA device every test
 here skips. On the card: ``python -m pytest
 tests/test_torch_kernels_cuda.py -q`` (the main-path shapes are checked
@@ -6,7 +6,8 @@ by chip_smoke.py)."""
 import pytest
 import torch
 
-from ripor_tpu_torch.ops import (KERNEL_LAUNCHES, beam_gather_rows,
+from ripor_tpu_torch.ops import (KERNEL_LAUNCHES, beam_gather_blocks,
+                                 beam_gather_blocks_plain, beam_gather_rows,
                                  beam_gather_rows_plain, beam_gather_update,
                                  beam_gather_update_plain,
                                  quantize_rows_int4_plain,
@@ -14,9 +15,9 @@ from ripor_tpu_torch.ops import (KERNEL_LAUNCHES, beam_gather_rows,
                                  reorder_cache_all_plain,
                                  step_attend_reorder,
                                  step_attend_reorder_plain,
-                                 step_attention_fused,
+                                 step_attention, step_attention_fused,
                                  step_attention_fused_plain,
-                                 step_attention_seq,
+                                 step_attention_plain, step_attention_seq,
                                  step_attention_seq_plain)
 
 pytestmark = pytest.mark.cuda
@@ -140,3 +141,55 @@ def test_non_deferred_kernels_match_plain(dtype, t, gen):
         before["step_attention_fused"] + 1)
     assert KERNEL_LAUNCHES["beam_gather_update"] == (
         before["beam_gather_update"] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t", [0, 5, Mc - 1])
+def test_write_attend_kernels_match_plain(dtype, t, gen):
+    """K8 over layer 1's K and V planes (slots > t masked; bf16 within
+    2e-2, f32 within 1e-4) and K7 over the L*2*B planes (bit-equal)."""
+    cache = torch.randn(L, 2, B, N, Mc, F, generator=gen, device="cuda",
+                        dtype=dtype)
+    q = torch.randn(B, N, F, generator=gen, device="cuda", dtype=dtype)
+    bias = torch.randn(Mc, H, generator=gen, device="cuda")
+    bias[t + 1:] = -1e30
+    before = dict(KERNEL_LAUNCHES)
+    args = (q, cache[1, 0], cache[1, 1], bias, H)
+    a, b = step_attention(*args), step_attention_plain(*args)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+    G = L * 2 * B
+    flat = cache.view(G, N, Mc, F)
+    src = torch.randint(0, N, (G, N), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    out = torch.empty_like(flat)
+    assert beam_gather_blocks(flat, src, out) is out
+    torch.cuda.synchronize()
+    assert torch.equal(out, beam_gather_blocks_plain(flat, src))
+    assert KERNEL_LAUNCHES["step_attention"] == before["step_attention"] + 1
+    assert KERNEL_LAUNCHES["beam_gather_blocks"] == (
+        before["beam_gather_blocks"] + 1)
+
+
+@pytest.mark.parametrize("dtype,R,C,offset", [
+    (torch.int8, 4, 32, 0),        # 128-byte blocks: 16-byte vectors
+    (torch.bfloat16, 3, 12, 0),    # 72 bytes: 8-byte vectors
+    (torch.float32, 1, 3, 0),      # 12 bytes: 4-byte vectors
+    (torch.bfloat16, 1, 3, 0),     # 6 bytes: 2-byte vectors
+    (torch.int8, 5, 13, 0),        # 65 bytes: 1-byte copies
+    (torch.int8, 4, 32, 1),        # odd base address: 1-byte copies
+])
+def test_beam_gather_blocks_narrow(dtype, R, C, offset, gen):
+    """Blocks whose bytes or base address rule out 16-byte vectors stay in
+    the kernel with narrower ones."""
+    G, n = 6, 37
+    flat = torch.randint(-100, 100, (G * n * R * C + offset,), generator=gen,
+                         device="cuda").to(dtype)
+    cache = flat[offset:].view(G, n, R, C)
+    src = torch.randint(0, n, (G, n), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    before = KERNEL_LAUNCHES["beam_gather_blocks"]
+    got = beam_gather_blocks(cache, src)
+    torch.cuda.synchronize()
+    assert torch.equal(got, beam_gather_blocks_plain(cache, src))
+    assert KERNEL_LAUNCHES["beam_gather_blocks"] == before + 1

@@ -1,12 +1,17 @@
-"""The port's deferred per-layer and non-deferred decode paths (plain
-kernel versions on the CPU) against the JAX package, at the JAX package's
-own path-vs-path bars (tests/test_beam.py:126-145, :312-345, :366-393).
+"""The port's deferred per-layer, non-deferred and write-then-attend
+decode paths (plain kernel versions on the CPU) against the JAX package,
+at the JAX package's own path-vs-path bars (tests/test_beam.py:126-145,
+:312-345, :366-393), and the port's choice of path and refusals against
+the reference's.
 
 References: the JAX deferred path (K4 in interpret mode), the JAX
 non-deferred kernel path (K5, K3 and K6 in interpret mode) and the JAX XLA
-path. Each JAX path runs once, in a module-scoped fixture. Dead beams hold
-filler whose order is not defined (torch.topk and lax.top_k break ties
-differently), so codes and states are compared on live beams."""
+path (the write-then-attend path's own reference). Each JAX path runs
+once, in a module-scoped fixture. Dead beams hold filler whose order is
+not defined (torch.topk and lax.top_k break ties differently), so codes
+and states are compared on live beams."""
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,10 +20,12 @@ import torch
 
 from ripor_tpu.decode.beam import make_beam_search_fn as jax_make
 from ripor_tpu.trie import build_trie as jax_build_trie
+from ripor_tpu.trie.succinct import dummy_tables as jax_dummy_tables
 from ripor_tpu.trie.succinct import succinct_tables as jax_tables
 from ripor_tpu_torch.decode.beam import NEG_INF, make_beam_search_fn
 from ripor_tpu_torch.ops import KERNEL_LAUNCHES
 from ripor_tpu_torch.trie import build_trie, succinct_tables, tables_to_torch
+from ripor_tpu_torch.trie.succinct import dummy_tables
 from torch_parity import port_model, setup
 
 BEAMS = 5
@@ -33,12 +40,14 @@ def world():
                              "cpu")
     refs = {}
 
-    def ref(name, **kw):
+    def ref(name, constrained=True, **kw):
         if name not in refs:
-            fn = jax_make(cfg, BEAMS, constrained=True, dtype=jnp.float32,
-                          **kw)
+            fn = jax_make(cfg, BEAMS, constrained=constrained,
+                          dtype=jnp.float32, **kw)
+            tabs = (jtables if constrained else jax.tree.map(
+                jnp.asarray, jax_dummy_tables(cfg.M)))
             refs[name] = tuple(np.asarray(a) for a in fn(
-                params, jnp.asarray(ids), jnp.asarray(mask), jtables))
+                params, jnp.asarray(ids), jnp.asarray(mask), tabs))
         return refs[name]
 
     return dict(cfg=cfg, ids=ids, mask=mask, tables=tables, ref=ref,
@@ -49,11 +58,13 @@ def _xla(w):
     return w["ref"]("xla", use_pallas_gather=False, deferred=False)
 
 
-def _port(w, **kw):
-    fn = make_beam_search_fn(w["cfg"], BEAMS, constrained=True,
+def _port(w, constrained=True, **kw):
+    fn = make_beam_search_fn(w["cfg"], BEAMS, constrained=constrained,
                              dtype=torch.float32, device="cpu", **kw)
+    tables = (w["tables"] if constrained else
+              tables_to_torch(dummy_tables(w["cfg"].M), "cpu"))
     return tuple(a.numpy() for a in fn(w["model"], w["ids"], w["mask"],
-                                       w["tables"]))
+                                       tables))
 
 
 def _assert_exact_parity(got, want):
@@ -120,8 +131,54 @@ def test_non_deferred_matches_jax_xla_path(world):
     _assert_exact_parity(_port(world, deferred=False), _xla(world))
 
 
+@pytest.mark.parametrize("segments", [4, 3])
+def test_write_attend_matches_jax_xla_path(world, segments):
+    """use_pallas_gather=False at the default segments (M=6 over 4: odd
+    spans 2/3/4/6) and at cache_segments=3 (even spans 2/4/6): the
+    write-then-attend path either way, as in the reference."""
+    _assert_exact_parity(_port(world, use_pallas_gather=False,
+                               cache_segments=segments), _xla(world))
+
+
+def test_write_attend_unconstrained_matches_jax(world):
+    """constrained=False with dummy tables (tests/test_beam.py:396)."""
+    want = world["ref"]("xla_unconstrained", constrained=False,
+                        use_pallas_gather=False)
+    got = _port(world, constrained=False, use_pallas_gather=False)
+    assert (got[0] > NEG_INF / 2).all()
+    _assert_exact_parity(got, want)
+
+
+_PATH_ARGS = list(itertools.product((True, False), (None, True, False),
+                                    (None, True, False), (None, "int8"),
+                                    (3, 4)))
+
+
+@pytest.mark.parametrize(
+    "pallas,deferred,megarow,quant,segments", _PATH_ARGS,
+    ids=["-".join(map(str, a)) for a in _PATH_ARGS])
+def test_refuses_what_the_reference_refuses(world, pallas, deferred,
+                                            megarow, quant, segments):
+    """Over use_pallas_gather x deferred x megarow x kv_cache_quant, at
+    even (3) and odd (4) segment spans for M=6: the port raises ValueError
+    for exactly the calls the reference refuses."""
+    kw = dict(use_pallas_gather=pallas, deferred=deferred, megarow=megarow,
+              kv_cache_quant=quant, cache_segments=segments)
+
+    def refused(make, **extra):
+        try:
+            make(world["cfg"], BEAMS, **kw, **extra)
+        except ValueError:
+            return True
+        return False
+
+    assert refused(make_beam_search_fn, dtype=torch.float32,
+                   device="cpu") == refused(jax_make, dtype=jnp.float32)
+
+
 def test_cpu_paths_launch_no_kernel(world):
     before = dict(KERNEL_LAUNCHES)
     _port(world, megarow=False, cache_segments=3, kv_cache_quant="int4")
     _port(world, deferred=False)
+    _port(world, use_pallas_gather=False)
     assert KERNEL_LAUNCHES == before
