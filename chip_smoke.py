@@ -6,10 +6,13 @@
 Phases, top to bottom; any failed check raises, so the exit code is
 nonzero and no result line is printed:
 
-  1. build the hand-written CUDA kernels from ripor_tpu_torch/csrc/;
+  1. build the hand-written CUDA kernels from ripor_tpu_torch/csrc/, and
+     print ptxas's registers, stack and spill bytes of K2 and K4;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes its path gives it (t5-base widths, B=8, N=1000, L=12, Mc in
-     {8, 32}): K1-K3 with exact bf16, int8 and int4 rows; K4 with int4,
+     {8, 32}; K2 and K4 at every segment size, Mc in {8, 16, 24, 32},
+     with their launch plans): K1-K3 with exact bf16, int8 and int4 rows;
+     K4 with int4,
      int8 (exact and pre-quantized kvg rows) and bf16 rows; K5 and K6 in
      bf16; K8 in bf16 and f32 at two slots t; K7 in bf16, int8 and on
      narrow blocks. Time kernel, plain version and one PyTorch call of
@@ -53,6 +56,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12                # H100 SXM float32 outside tensor cores
 B, N, L, F, H = 8, 1000, 12, 768, 12
 M, K = 32, 256
+SEGMENTS = (8, 16, 24, 32)       # cache slots of cache_segments=4 at M=32
 N_DOCS = 100_000
 SEED = 0
 
@@ -126,6 +130,38 @@ def attention_inputs(Mc, t, g):
     return q, kv_new, bias_hist, bias_new
 
 
+def ptxas_report(build_dir, kernels):
+    """Phase 1: registers, stack and spill bytes that ptxas reported in
+    build.log for each instance of the named kernels (their shared memory
+    is dynamic: the launch plan, in phase 2's records)."""
+    import re
+    from pathlib import Path
+    recs, cur = [], None
+    for line in (Path(build_dir) / "build.log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            hit = next((k for k in kernels if f"{k}_kernel" in name), None)
+            cur = None
+            if hit:
+                inst = name.split(f"{hit}_kernel", 1)[1].split("EEv", 1)[0]
+                cur = {"kernel": hit, "instance": inst}
+                recs.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return recs
+
+
 def megarow_checks(results, g):
     """Phase 2, megarow kernels K1-K3 against their plain versions at the
     main path's shapes; appends (kernel, case, record) to results."""
@@ -133,11 +169,9 @@ def megarow_checks(results, g):
     from ripor_tpu_torch.ops import (beam_gather_rows,
                                      beam_gather_rows_plain,
                                      reorder_cache_all,
-                                     reorder_cache_all_plain,
-                                     step_attention_seq,
-                                     step_attention_seq_plain)
+                                     reorder_cache_all_plain)
     bidx = torch.arange(B, device="cuda")[:, None]
-    for Mc in (8, 32):
+    for Mc in SEGMENTS:
         for quant in ("int4", "int8", None):
             tag = f"{quant or 'bf16'} Mc={Mc}"
             cache = random_rows(quant, (B, N, L, Mc), g)
@@ -147,78 +181,92 @@ def megarow_checks(results, g):
             uniq = unique_sources(src)
             slab = L * Mc * RW * cache.element_size()
             t = Mc - 1
+            n_before = len(results)
+            ends = Mc in (SEGMENTS[0], SEGMENTS[-1])  # K1 and K3 only there
 
-            # K1
-            kvg = (torch.randint(-128, 128, (B, N, L * RW), generator=g,
-                                 device="cuda", dtype=torch.int8)
-                   if quant else
-                   torch.randn(B, N, L * RW, generator=g, device="cuda",
-                               dtype=torch.bfloat16))
-            dst = torch.empty_like(cache)
-            ref = reorder_cache_all_plain(kvg, cache, torch.empty_like(cache),
-                                          src, t)
-            out = reorder_cache_all(kvg, cache, dst, src, t)
-            torch.cuda.synchronize()
-            check(torch.equal(out, ref), f"reorder_cache_all {tag}")
-            del ref
-            rec = dict(
-                ms=cuda_ms(lambda: reorder_cache_all(kvg, cache, dst, src, t),
-                           5),
-                plain_ms=cuda_ms(lambda: reorder_cache_all_plain(
-                    kvg, cache, dst, src, t), 3),
-                library_ms=cuda_ms(lambda: cache[bidx, src.long()], 3),
-                max_abs_err=0.0)
-            rec["bound_ms"], rec["bound_by"] = bound(
-                uniq * slab + B * N * slab + nbytes(kvg, src))
-            results.append(("reorder_cache_all", tag, rec))
-            del dst, kvg
+            if ends:
+                # K1
+                kvg = (torch.randint(-128, 128, (B, N, L * RW), generator=g,
+                                     device="cuda", dtype=torch.int8)
+                       if quant else
+                       torch.randn(B, N, L * RW, generator=g, device="cuda",
+                                   dtype=torch.bfloat16))
+                dst = torch.empty_like(cache)
+                ref = reorder_cache_all_plain(
+                    kvg, cache, torch.empty_like(cache), src, t)
+                out = reorder_cache_all(kvg, cache, dst, src, t)
+                torch.cuda.synchronize()
+                check(torch.equal(out, ref), f"reorder_cache_all {tag}")
+                del ref
+                rec = dict(
+                    ms=cuda_ms(lambda: reorder_cache_all(
+                        kvg, cache, dst, src, t), 5),
+                    plain_ms=cuda_ms(lambda: reorder_cache_all_plain(
+                        kvg, cache, dst, src, t), 3),
+                    library_ms=cuda_ms(lambda: cache[bidx, src.long()], 3),
+                    max_abs_err=0.0)
+                rec["bound_ms"], rec["bound_by"] = bound(
+                    uniq * slab + B * N * slab + nbytes(kvg, src))
+                results.append(("reorder_cache_all", tag, rec))
+                del dst, kvg
 
-            # K2 (layer 5), with the QFUSE rows for quantized caches
-            q, kv_new, bias_hist, bias_new = attention_inputs(Mc, t, g)
-            args = (q, kv_new, cache, 5, bias_hist, bias_new, H, quant)
-            got = step_attention_seq(*args)
-            want = step_attention_seq_plain(*args)
-            torch.cuda.synchronize()
-            if quant:
-                (got, got_q), (want, want_q) = got, want
-                check(torch.equal(got_q, want_q),
-                      f"step_attention_seq emit_quant rows {tag}")
-            err = (got.float() - want.float()).abs().max().item()
-            check(torch.allclose(got.float(), want.float(), rtol=2e-2,
-                                 atol=2e-2), f"step_attention_seq {tag}: "
-                                             f"max abs err {err}")
-            rec = dict(ms=cuda_ms(lambda: step_attention_seq(*args), 10),
-                       plain_ms=cuda_ms(lambda: step_attention_seq_plain(
-                           *args), 3),
-                       library_ms=None, max_abs_err=err)
-            outs = nbytes(got) + (B * N * RW if quant else 0)
-            rec["bound_ms"], rec["bound_by"] = bound(
-                nbytes(q, kv_new, bias_hist, bias_new) + outs
-                + B * N * Mc * RW * cache.element_size(),
-                4.0 * B * N * (Mc + 1) * F)
-            results.append(("step_attention_seq", tag, rec))
-            del q, kv_new, got, want
-
-            # K3 over this step's rows in the layout the main path gathers
-            # (QFUSE int8 rows, or exact bf16 K|V rows)
-            x = cache[:, :, :, 0].reshape(B, N, L * RW).contiguous()
-            ref = beam_gather_rows_plain(x, src)
-            check(torch.equal(beam_gather_rows(x, src), ref),
-                  f"beam_gather_rows {tag}")
-            rec = dict(ms=cuda_ms(lambda: beam_gather_rows(x, src), 20),
-                       plain_ms=cuda_ms(lambda: beam_gather_rows_plain(x, src),
-                                        5),
-                       library_ms=cuda_ms(lambda: x[bidx, src.long()], 5),
-                       max_abs_err=0.0)
-            row = L * RW * x.element_size()
-            rec["bound_ms"], rec["bound_by"] = bound(
-                uniq * row + B * N * row + nbytes(src))
-            results.append(("beam_gather_rows", tag, rec))
-            del x, ref, cache
+            step_attention_seq_case(results, tag, quant, cache, Mc, t, g)
+            if ends:
+                # K3 over this step's rows in the layout the main path gathers
+                # (QFUSE int8 rows, or exact bf16 K|V rows)
+                x = cache[:, :, :, 0].reshape(B, N, L * RW).contiguous()
+                ref = beam_gather_rows_plain(x, src)
+                check(torch.equal(beam_gather_rows(x, src), ref),
+                      f"beam_gather_rows {tag}")
+                rec = dict(ms=cuda_ms(lambda: beam_gather_rows(x, src), 20),
+                           plain_ms=cuda_ms(
+                               lambda: beam_gather_rows_plain(x, src), 5),
+                           library_ms=cuda_ms(lambda: x[bidx, src.long()], 5),
+                           max_abs_err=0.0)
+                row = L * RW * x.element_size()
+                rec["bound_ms"], rec["bound_by"] = bound(
+                    uniq * row + B * N * row + nbytes(src))
+                results.append(("beam_gather_rows", tag, rec))
+            del cache
             torch.cuda.empty_cache()
-            for name, tg, r in results[-3:]:
-                print("kernel_check", json.dumps({"kernel": name,
-                                                  "case": tg, **r}))
+            print_checks(results[n_before:])
+
+
+def print_checks(recs):
+    for name, tg, r in recs:
+        print("kernel_check", json.dumps({"kernel": name, "case": tg, **r}))
+
+
+def step_attention_seq_case(results, tag, quant, cache, Mc, t, g):
+    """K2 at layer 5 of a [B, N, L, Mc, RW] cache against its plain
+    version, with the QFUSE rows for quantized caches (bit-equal)."""
+    import torch
+    from ripor_tpu_torch.ops import (step_attention_seq,
+                                     step_attention_seq_plain)
+    from ripor_tpu_torch.ops.staging import stage_plan
+    RW = cache.shape[-1]
+    q, kv_new, bias_hist, bias_new = attention_inputs(Mc, t, g)
+    args = (q, kv_new, cache, 5, bias_hist, bias_new, H, quant)
+    got = step_attention_seq(*args)
+    want = step_attention_seq_plain(*args)
+    torch.cuda.synchronize()
+    if quant:
+        (got, got_q), (want, want_q) = got, want
+        check(torch.equal(got_q, want_q),
+              f"step_attention_seq emit_quant rows {tag}")
+    err = (got.float() - want.float()).abs().max().item()
+    check(torch.allclose(got.float(), want.float(), rtol=2e-2, atol=2e-2),
+          f"step_attention_seq {tag}: max abs err {err}")
+    plan = stage_plan(quant, cache.element_size(), q.element_size(), Mc, F, H)
+    rec = dict(ms=cuda_ms(lambda: step_attention_seq(*args), 20),
+               plain_ms=cuda_ms(lambda: step_attention_seq_plain(*args), 3),
+               library_ms=None, max_abs_err=err, stages=plan.stages,
+               smem_bytes=plan.smem_bytes)
+    outs = nbytes(got) + (B * N * RW if quant else 0)
+    rec["bound_ms"], rec["bound_by"] = bound(
+        nbytes(q, kv_new, bias_hist, bias_new) + outs
+        + B * N * Mc * RW * cache.element_size(), 4.0 * B * N * (Mc + 1) * F)
+    results.append(("step_attention_seq", tag, rec))
 
 
 def deferred_checks(results, g):
@@ -229,7 +277,8 @@ def deferred_checks(results, g):
     import torch
     from ripor_tpu_torch.ops import (step_attend_reorder,
                                      step_attend_reorder_plain)
-    for Mc in (8, 32):
+    from ripor_tpu_torch.ops.staging import stage_plan
+    for Mc in SEGMENTS:
         for quant, kvg_q8 in (("int4", False), ("int8", False),
                               ("int8", True), (None, False)):
             tag = f"{quant or 'bf16'}{' kvg int8' if kvg_q8 else ''} Mc={Mc}"
@@ -256,10 +305,13 @@ def deferred_checks(results, g):
             check(torch.allclose(got.float(), want.float(), rtol=2e-2,
                                  atol=2e-2), f"step_attend_reorder {tag}: "
                                              f"max abs err {err}")
-            rec = dict(ms=cuda_ms(lambda: run(step_attend_reorder, dst), 10),
+            plan = stage_plan(quant, esz, q.element_size(), Mc, F, H,
+                              exact_kvg=quant is not None and not kvg_q8)
+            rec = dict(ms=cuda_ms(lambda: run(step_attend_reorder, dst), 20),
                        plain_ms=cuda_ms(lambda: run(
                            step_attend_reorder_plain, dst_plain), 3),
-                       library_ms=None, max_abs_err=err)
+                       library_ms=None, max_abs_err=err, stages=plan.stages,
+                       smem_bytes=plan.smem_bytes)
             slab = Mc * RW * esz
             rec["bound_ms"], rec["bound_by"] = bound(
                 unique_sources(src) * slab + B * N * slab
@@ -757,6 +809,9 @@ def main():
     _build.build_all()
     print("build", json.dumps({"seconds": time.monotonic() - t0,
                                **_build.BUILD_INFO}))
+    for rec in ptxas_report(_build.BUILD_INFO["dir"],
+                            ("step_attention_seq", "step_attend_reorder")):
+        print("ptxas", json.dumps(rec))
 
     results = []
     g = torch.Generator(device="cuda").manual_seed(SEED)

@@ -30,6 +30,25 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// round to the dot dtype (bf16) or keep f32
+template <bool RB>
+__device__ __forceinline__ float rd(float x) {
+  return RB ? bf16_round(x) : x;
+}
+
 // exact 2^e for integral e in [-126, 127]
 __device__ __forceinline__ float pow2i(int e) {
   return __int_as_float((e + 127) << 23);
@@ -61,47 +80,53 @@ __device__ __forceinline__ void unpack_int4(int8_t b, float& k, float& v) {
 
 // One warp quantizes the D-wide group x[0, D) to int8 out[0, D); returns
 // the group's exponent (identical in every lane).
-__device__ __forceinline__ int warp_quant_group_int8(const float* x, int D,
+template <typename T>
+__device__ __forceinline__ int warp_quant_group_int8(const T* x, int D,
                                                      int8_t* out, int lane) {
   float am = 0.f;
-  for (int d = lane; d < D; d += 32) am = fmaxf(am, fabsf(x[d]));
+  for (int d = lane; d < D; d += 32) am = fmaxf(am, fabsf(to_f(x[d])));
   const int e = quant_exponent(warp_max(am), 127.f);
   const float s = pow2i(-e);
   for (int d = lane; d < D; d += 32)
-    out[d] = static_cast<int8_t>(static_cast<int>(rintf(x[d] * s)));
+    out[d] = static_cast<int8_t>(static_cast<int>(rintf(to_f(x[d]) * s)));
   return e;
 }
 
 // One warp quantizes head h's K group xk[0, D) and V group xv[0, D) into
 // D packed int4 bytes; returns both exponents.
-__device__ __forceinline__ void warp_quant_head_int4(const float* xk,
-                                                     const float* xv, int D,
-                                                     int8_t* out, int lane,
-                                                     int& ek, int& ev) {
+template <typename T>
+__device__ __forceinline__ void warp_quant_head_int4(const T* xk, const T* xv,
+                                                     int D, int8_t* out,
+                                                     int lane, int& ek,
+                                                     int& ev) {
   float ak = 0.f, av = 0.f;
   for (int d = lane; d < D; d += 32) {
-    ak = fmaxf(ak, fabsf(xk[d]));
-    av = fmaxf(av, fabsf(xv[d]));
+    ak = fmaxf(ak, fabsf(to_f(xk[d])));
+    av = fmaxf(av, fabsf(to_f(xv[d])));
   }
   ek = quant_exponent(warp_max(ak), 7.f);
   ev = quant_exponent(warp_max(av), 7.f);
   const float sk = pow2i(-ek), sv = pow2i(-ev);
   for (int d = lane; d < D; d += 32) {
-    const int qk = static_cast<int>(fminf(fmaxf(rintf(xk[d] * sk), -8.f), 7.f));
-    const int qv = static_cast<int>(fminf(fmaxf(rintf(xv[d] * sv), -8.f), 7.f));
+    const int qk =
+        static_cast<int>(fminf(fmaxf(rintf(to_f(xk[d]) * sk), -8.f), 7.f));
+    const int qv =
+        static_cast<int>(fminf(fmaxf(rintf(to_f(xv[d]) * sv), -8.f), 7.f));
     const unsigned byte = static_cast<unsigned>(qk + INT4_OFFSET) |
                           (static_cast<unsigned>(qv + INT4_OFFSET) << 4);
     out[d] = static_cast<int8_t>(static_cast<uint8_t>(byte));
   }
 }
 
-// The whole block quantizes one K|V row kv[0, 2F) (float, any memory
-// space readable by the block) into the cache row out[0, RW):
-// kind 1 = int8 (RW = 2F + SCALE_COLS), kind 2 = int4 (RW = F + SCALE_COLS).
-__device__ inline void block_quant_row(const float* kv, int F, int H,
-                                       int kind, int8_t* out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
+// Threads [0, nthreads) (whole warps, thread ``rank``) quantize one K|V
+// row kv[0, 2F) (float or bf16, any memory space) into the cache row
+// out[0, RW) (global or shared): kind 1 = int8 (RW = 2F + SCALE_COLS),
+// kind 2 = int4 (RW = F + SCALE_COLS).
+template <typename T>
+__device__ inline void quant_row(const T* kv, int F, int H, int kind,
+                                 int8_t* out, int rank, int nthreads) {
+  const int lane = rank & 31, warp = rank >> 5;
+  const int nwarps = nthreads >> 5;
   const int D = F / H;
   int8_t* tail = out + (kind == 1 ? 2 * F : F);
   if (kind == 1) {
@@ -120,8 +145,7 @@ __device__ inline void block_quant_row(const float* kv, int F, int H,
       }
     }
   }
-  for (int c = 2 * H + threadIdx.x; c < SCALE_COLS; c += blockDim.x)
-    tail[c] = 0;
+  for (int c = 2 * H + rank; c < SCALE_COLS; c += nthreads) tail[c] = 0;
 }
 
 }  // namespace ripor

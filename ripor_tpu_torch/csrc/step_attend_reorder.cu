@@ -14,72 +14,38 @@
 //     scale 1) in the in-kernel quantize mode, as the inserted row
 //     otherwise. Nothing is inserted at t = 0, and with write_back = 0
 //     (the final step) nothing is written to cache_dst.
-// The attention is attend_core.cuh's attend_beam, with the reference's
-// rounding points (bf16 products for bf16 and quantized caches, f32 for
-// f32 caches).
 //
 // Bound on the H100: bytes. Per layer call it reads the source slabs
 // (B*N*Mc*RW cache bytes at most) and writes as many, plus q, kv_new,
-// kvg's layer slice and attn; ~4 flops per cache element is far under the
-// ~300 flop/byte ridge. At t5-base, B=8, N=1000, Mc=32 that is ~1.6 GB
-// (bf16 rows), ~0.85 GB (int8), ~0.46 GB (int4): 0.47 / 0.25 / 0.14 ms
-// at 3.35 TB/s.
+// kvg's layer slice and attn; ~4 flops per cache element. At t5-base,
+// B=8, N=1000, Mc=32 that is ~1.6 GB (bf16 rows), ~0.85 GB (int8), ~0.46
+// GB (int4): 0.47 / 0.25 / 0.14 ms at 3.35 TB/s.
 //
-// Design: one block (256 threads) per beam, B*N = 8000 blocks at the main
-// path's shape. 64-bit offsets throughout (the bf16 cache at that shape
-// holds 4.7e9 elements). The block first copies its source slab to the
-// destination with 16-byte vectors, consecutive threads on consecutive
-// addresses, taking the insert span from kvg in the same pass (or
-// skipping it for the codec, row_codec.cuh, to write after); then it runs
-// the attention over the source slab, streaming slots from L2 without
-// staging them (one beam's rows of one layer are up to 98 KB), so only
-// q, kv_new and kvg's row sit in shared memory (< 48 KB at t5-base).
+// Design: attend_staged.cuh. The producer warp stages the source slab
+// cache_src[l, b, src[b, n]] with bulk async copies; a verbatim insert is
+// a third bulk copy, of kvg's row straight into slot s, between the two
+// halves of the slab. In the quantize mode kvg's row is staged beside the
+// slab and the consumers quantize it into slot s (quant_row) while the
+// scores run, then fence it for the async proxy. One bulk store writes
+// the patched slab to cache_dst (early when nothing is patched by
+// threads), and the stage is released only after the store has read it.
+// Every cache byte is read from HBM once and written once.
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include <type_traits>
-
-#include "attend_core.cuh"
+#include "attend_staged.cuh"
 #include "row_codec.cuh"
 
 using namespace ripor;
+using namespace ripor::staged;
 
 namespace {
-
-constexpr int kThreads = 256;
-
-// to[0, slab) = from[0, slab), except bytes [ins_lo, ins_lo + ins_bytes),
-// which come from ins — or are left alone when ins is null.
-__device__ __forceinline__ void copy_slab(const char* __restrict__ from,
-                                          char* __restrict__ to,
-                                          long long slab,
-                                          const char* __restrict__ ins,
-                                          long long ins_lo,
-                                          long long ins_bytes, bool vec) {
-  if (vec) {
-    const long long n16 = slab / 16, lo16 = ins_lo / 16;
-    const long long hi16 = lo16 + ins_bytes / 16;
-    const uint4* f4 = reinterpret_cast<const uint4*>(from);
-    const uint4* i4 = reinterpret_cast<const uint4*>(ins);
-    uint4* t4 = reinterpret_cast<uint4*>(to);
-    for (long long i = threadIdx.x; i < n16; i += blockDim.x) {
-      if (i < lo16 || i >= hi16) t4[i] = f4[i];
-      else if (ins) t4[i] = i4[i - lo16];
-    }
-  } else {
-    const long long hi = ins_lo + ins_bytes;
-    for (long long i = threadIdx.x; i < slab; i += blockDim.x) {
-      if (i < ins_lo || i >= hi) to[i] = from[i];
-      else if (ins) to[i] = ins[i - ins_lo];
-    }
-  }
-}
 
 // KIND: 0 exact rows (dtype T, RW = 2F), 1 int8 rows, 2 packed int4 rows.
 // KVG_Q8: kvg holds int8 cache rows [L*RW] (KIND 1 only), else exact
 // rows [L*2F] of T.
 template <typename T, int KIND, bool KVG_Q8>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
 step_attend_reorder_kernel(const T* __restrict__ q,
                            const T* __restrict__ kv_new,
                            const char* __restrict__ kvg,
@@ -90,57 +56,100 @@ step_attend_reorder_kernel(const T* __restrict__ q,
                            const float* __restrict__ bias_new,
                            T* __restrict__ attn, int N, long long BN, int L,
                            int Mc, int F, int H, int RW, int layer, int t,
-                           int write_back, int vec) {
-  constexpr bool RB = KIND != 0 || std::is_same<T, __nv_bfloat16>::value;
+                           int write_back, Layout lay, int stages, int vec,
+                           int bulk) {
   // in-kernel quantize mode: exact kvg rows into a quantized cache
   constexpr bool OVR_EXACT = KIND != 0 && !KVG_Q8;
-  extern __shared__ float sm[];
-  float* qs = sm;                             // [F]   q in the dot dtype
-  float* kvs = qs + F;                        // [2F]  kv_new as float
-  float* kg = kvs + 2 * F;                    // [2F]  kvg's row (OVR_EXACT)
-  float* sc = kg + (OVR_EXACT ? 2 * F : 0);   // [(Mc+1)*H]
-  float* pe = sc + (Mc + 1) * H;              // [Mc*H]
-  float* pn = pe + Mc * H;                    // [H]
-
-  const long long beam = blockIdx.x;          // b * N + n
-  const long long b = beam / N;
-  const int tid = threadIdx.x;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kMaxStages;
+  const int tid = threadIdx.x, lane = tid & 31;
   const long long row_bytes =
       KIND == 0 ? static_cast<long long>(RW) * sizeof(T) : RW;
-  const long long slab = static_cast<long long>(Mc) * row_bytes;
+  const long long slab = Mc * row_bytes;
   const long long lbn = static_cast<long long>(layer) * BN;
-  const char* from = cache_src + (lbn + b * N + src[beam]) * slab;
-  char* to = cache_dst + (lbn + beam) * slab;
   // step t-1's layer-l row: exact rows share the exact cache's row layout,
   // int8 kvg rows are int8 cache rows
   const long long kvg_row_bytes =
       KVG_Q8 ? static_cast<long long>(RW)
              : 2LL * F * static_cast<long long>(sizeof(T));
-  const char* ins = kvg + (beam * L + layer) * kvg_row_bytes;
   const int slot = t - 1;                     // -1 at t == 0: no insert
+  const bool patch = OVR_EXACT && slot >= 0;  // slot s written by threads
 
-  for (int i = tid; i < F; i += kThreads)
-    qs[i] = rd<RB>(to_f(q[beam * F + i]));
-  for (int i = tid; i < 2 * F; i += kThreads)
-    kvs[i] = to_f(kv_new[beam * 2 * F + i]);
-  if (OVR_EXACT)
-    for (int i = tid; i < 2 * F; i += kThreads)
-      kg[i] = to_f(reinterpret_cast<const T*>(ins)[i]);
+  init_barriers(full, empty, stages);
+  stage_biases(reinterpret_cast<float*>(smem + lay.bias), bias_hist, bias_new,
+               Mc, H);
   __syncthreads();
 
-  if (write_back) {
-    const long long ins_bytes = slot >= 0 ? row_bytes : 0;
-    copy_slab(from, to, slab, OVR_EXACT ? nullptr : ins, slot * row_bytes,
-              ins_bytes, vec);
-    if (OVR_EXACT && slot >= 0)
-      block_quant_row(kg, F, H, KIND,
-                      reinterpret_cast<int8_t*>(to + slot * row_bytes));
+  if (tid >= kConsumers) {  // the producer warp
+    long long i = 0;
+    for (long long beam = blockIdx.x; beam < BN; beam += gridDim.x, ++i) {
+      const int s = static_cast<int>(i % stages);
+      if (i >= stages) mbar_wait(&empty[s], ((i / stages) - 1) & 1);
+      unsigned char* st = smem + lay.stage0 + s * lay.stage_bytes;
+      const long long qb = static_cast<long long>(F) * sizeof(T);
+      const char* from = cache_src + (lbn + beam / N * N + src[beam]) * slab;
+      const char* ins = kvg + (beam * L + layer) * kvg_row_bytes;
+      if (bulk && lane == 0)
+        mbar_arrive_tx(&full[s], static_cast<uint32_t>(
+                                     slab + 3 * qb + (patch ? 2 * qb : 0)));
+      if (!OVR_EXACT && slot >= 0) {  // verbatim insert into slot s
+        const long long lo = slot * row_bytes;
+        stage_in(st + lay.slab, from, lo, &full[s], bulk, lane);
+        stage_in(st + lay.slab + lo, ins, row_bytes, &full[s], bulk, lane);
+        stage_in(st + lay.slab + lo + row_bytes, from + lo + row_bytes,
+                 slab - lo - row_bytes, &full[s], bulk, lane);
+      } else {
+        stage_in(st + lay.slab, from, slab, &full[s], bulk, lane);
+      }
+      if (patch) stage_in(st + lay.kg, ins, 2 * qb, &full[s], bulk, lane);
+      stage_in(st + lay.q, q + beam * F, qb, &full[s], bulk, lane);
+      stage_in(st + lay.kvn, kv_new + beam * 2 * F, 2 * qb, &full[s], bulk,
+               lane);
+      if (!bulk) {
+        __threadfence_block();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&full[s]);
+      }
+    }
+    return;
   }
 
-  const MergedRows<T, KIND, OVR_EXACT> view{from, row_bytes, F, H, slot,
-                                            ins, kg};
-  attend_beam<RB, KIND != 0>(view, qs, kvs, bias_hist, bias_new, Mc, F, H,
-                             sc, pe, pn, attn + beam * F);
+  const Core<T, KIND> core{lay, smem, Dims{Mc, F, H, F / H, row_bytes,
+                                           vec != 0}};
+  long long i = 0;
+  for (long long beam = blockIdx.x; beam < BN; beam += gridDim.x, ++i) {
+    const int s = static_cast<int>(i % stages);
+    mbar_wait(&full[s], (i / stages) & 1);
+    unsigned char* st = smem + lay.stage0 + s * lay.stage_bytes;
+    char* stage_slab = reinterpret_cast<char*>(st + lay.slab);
+    char* to = cache_dst + (lbn + beam) * slab;
+    const Beam<T> b{stage_slab, reinterpret_cast<const T*>(st + lay.q),
+                    reinterpret_cast<const T*>(st + lay.kvn),
+                    patch ? reinterpret_cast<const T*>(st + lay.kg) : nullptr,
+                    patch ? slot : -1};
+    // the slab as loaded is the destination's: store it at once
+    if (write_back && bulk && !patch && tid == 0) {
+      fence_proxy_async();
+      bulk_store(to, stage_slab, static_cast<uint32_t>(slab));
+    }
+    core.scores(b, tid, b.kg,
+                write_back && patch
+                    ? reinterpret_cast<int8_t*>(stage_slab + slot * row_bytes)
+                    : nullptr);
+    // slot s is patched and fenced (scores ends on a consumer barrier)
+    if (write_back && patch && bulk && tid == 0)
+      bulk_store(to, stage_slab, static_cast<uint32_t>(slab));
+    if (write_back && !bulk)
+      for (long long j = tid; j < slab; j += kConsumers) to[j] = stage_slab[j];
+    core.values(b, tid, attn + beam * F);
+    if (write_back && bulk && tid == 0) bulk_wait_read();
+    release(&empty[s], lane);
+  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 template <typename T, int KIND, bool KVG_Q8>
@@ -148,32 +157,39 @@ cudaError_t launch(const void* q, const void* kv_new, const void* kvg,
                    const void* cache_src, void* cache_dst, const void* src,
                    const void* bias_hist, const void* bias_new, void* attn,
                    long long B, long long N, int L, int Mc, int F, int H,
-                   int RW, int layer, int t, int write_back,
-                   cudaStream_t stream) {
+                   int RW, int layer, int t, int write_back, long long stages,
+                   long long smem, cudaStream_t stream) {
   constexpr bool OVR_EXACT = KIND != 0 && !KVG_Q8;
-  const size_t smem =
-      sizeof(float) * ((OVR_EXACT ? 5 : 3) * static_cast<size_t>(F) +
-                       attend_scratch_floats(Mc, H));
-  auto kernel = step_attend_reorder_kernel<T, KIND, KVG_Q8>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
   const long long row_bytes =
       KIND == 0 ? static_cast<long long>(RW) * sizeof(T) : RW;
-  const uintptr_t align = reinterpret_cast<uintptr_t>(kvg) |
-                          reinterpret_cast<uintptr_t>(cache_src) |
-                          reinterpret_cast<uintptr_t>(cache_dst);
-  const int vec = (row_bytes % 16 == 0) && (align % 16 == 0);
-  kernel<<<static_cast<unsigned>(B * N), kThreads, smem, stream>>>(
+  const bool vec = (F / H) % 16 == 0;
+  const Layout lay = make_layout(Mc, F, H, row_bytes, sizeof(T), OVR_EXACT,
+                                 vec, chunk_cols<T, KIND>());
+  // the plan of ops/staging.py must be this layout's
+  if (stages < 1 || stages > kMaxStages || smem > kSmemLimit ||
+      lay.stage0 + stages * lay.stage_bytes != smem)
+    return cudaErrorInvalidValue;
+  // bulk copies: 16-byte sizes (the slot insert splits the slab at row
+  // boundaries) and addresses
+  const int bulk = row_bytes % 16 == 0 &&
+                   (static_cast<long long>(F) * sizeof(T)) % 16 == 0 &&
+                   aligned16(q) && aligned16(kv_new) && aligned16(kvg) &&
+                   aligned16(cache_src) && aligned16(cache_dst);
+  auto kernel = step_attend_reorder_kernel<T, KIND, KVG_Q8>;
+  int resident;
+  cudaError_t err = resident_blocks(reinterpret_cast<const void*>(kernel),
+                                    static_cast<int>(smem), &resident);
+  if (err != cudaSuccess) return err;
+  const long long BN = B * N;
+  const long long grid = BN < resident ? BN : resident;
+  kernel<<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kv_new),
       static_cast<const char*>(kvg), static_cast<const char*>(cache_src),
       static_cast<char*>(cache_dst), static_cast<const int*>(src),
       static_cast<const float*>(bias_hist),
-      static_cast<const float*>(bias_new), static_cast<T*>(attn), int(N),
-      B * N, L, Mc, F, H, RW, layer, t, write_back, vec);
+      static_cast<const float*>(bias_new), static_cast<T*>(attn), int(N), BN,
+      L, Mc, F, H, RW, layer, t, write_back, lay, static_cast<int>(stages),
+      vec, bulk);
   return cudaGetLastError();
 }
 
@@ -181,14 +197,15 @@ cudaError_t launch(const void* q, const void* kv_new, const void* kvg,
 
 // kind: 0 exact, 1 int8, 2 int4; kvg_q8: kvg holds int8 cache rows (kind
 // 1 only); is_f32: q/kv_new/attn (and exact rows and exact kvg) are
-// float32, else bfloat16. cache_dst must not alias cache_src.
+// float32, else bfloat16. cache_dst must not alias cache_src. stages and
+// smem: the launch plan of ripor_tpu_torch/ops/staging.py.
 extern "C" int step_attend_reorder(
     const void* q, const void* kv_new, const void* kvg, const void* cache_src,
     void* cache_dst, const void* src, const void* bias_hist,
     const void* bias_new, void* attn, long long B, long long N, long long L,
     long long Mc, long long F, long long H, long long RW, long long layer,
     long long t, long long write_back, long long kind, long long kvg_q8,
-    long long is_f32, void* stream) {
+    long long is_f32, long long stages, long long smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (B * N == 0) return cudaSuccess;
@@ -196,7 +213,7 @@ extern "C" int step_attend_reorder(
   err = launch<T, K, Q>(q, kv_new, kvg, cache_src, cache_dst, src,          \
                         bias_hist, bias_new, attn, B, N, int(L), int(Mc),   \
                         int(F), int(H), int(RW), int(layer), int(t),        \
-                        int(write_back), s)
+                        int(write_back), stages, smem, s)
   if (is_f32) {
     if (kind == 0) RIPOR_LAUNCH(float, 0, false);
     else if (kind == 1 && kvg_q8) RIPOR_LAUNCH(float, 1, true);

@@ -15,7 +15,8 @@ per-step reorder moves one slab per beam.
   reordered cache, with position t's own k/v folded into the softmax.
   int8/int4 rows are dequantized by per-(slot, head) power-of-2 exponents.
   With ``emit_quant`` it also returns kv_new quantized to cache rows (the
-  rows the next step's K1 inserts).
+  rows the next step's K1 inserts). Each beam's layer slab is staged in
+  shared memory; ops/staging.py plans the stages.
 
 The TPU kernels' tuning knobs (chunk, layer group, descriptor width, VMEM
 budgets, beam padding) have no counterpart here: they served the TPU's
@@ -33,6 +34,7 @@ from ripor_tpu_torch.ops._build import (check_launch, device_kind,
 from ripor_tpu_torch.ops.attend_reorder import (
     KIND_CODE, attend_plain, cache_quant, decode_rows,
     quantize_rows_int4_plain, quantize_rows_plain, row_width)
+from ripor_tpu_torch.ops.staging import stage_plan
 
 
 # ---------------------------------------------------------------------------
@@ -175,16 +177,19 @@ def step_attention_seq(q: torch.Tensor, kv_new: torch.Tensor,
     require(all(x.is_contiguous() for x in
                 (q, kv_new, cache, bias_hist, bias_new)),
             "step_attention_seq needs contiguous tensors")
+    plan = stage_plan(quant, cache.element_size(), q.element_size(), Mc, F,
+                      num_heads)
     attn = torch.empty_like(q)
     kvq = (torch.empty(B, N, RW, dtype=torch.int8, device=q.device)
            if emit_quant else None)
-    fn = kernel_fn("step_attention_seq", "step_attention_seq", 7, 10)
+    fn = kernel_fn("step_attention_seq", "step_attention_seq", 7, 12)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), kv_new.data_ptr(), cache.data_ptr(),
                 bias_hist.data_ptr(), bias_new.data_ptr(), attn.data_ptr(),
                 kvq.data_ptr() if kvq is not None else None,
                 B * N, L, Mc, F, num_heads, RW, layer, KIND_CODE[quant],
                 int(q.dtype == torch.float32), int(kvq is not None),
+                plan.stages, plan.smem_bytes,
                 torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "step_attention_seq")
     return (attn, kvq) if emit_quant else attn

@@ -193,3 +193,200 @@ def test_beam_gather_blocks_narrow(dtype, R, C, offset, gen):
     torch.cuda.synchronize()
     assert torch.equal(got, beam_gather_blocks_plain(cache, src))
     assert KERNEL_LAUNCHES["beam_gather_blocks"] == before + 1
+
+
+# ---------------------------------------------------------------------------
+# K2 and K4 on the staged core (csrc/attend_staged.cuh): edges of the grid
+# (B*N = 1, below the grid, not a multiple of it), Mc from 1 to 32, D of 16
+# and 64 (the vector path) and 24 (the scalar path), f32 at t5-base width
+# in a single stage, K4's modes, and the packed products bit for bit.
+# ---------------------------------------------------------------------------
+
+def _rows(quant, lead, F, H, gen, dtype=torch.bfloat16):
+    kv = torch.randn(*lead, 2 * F, generator=gen, device="cuda")
+    if quant == "int8":
+        return quantize_rows_plain(kv, H)
+    if quant == "int4":
+        return quantize_rows_int4_plain(kv, H)
+    return kv.to(dtype)
+
+
+def _attn_inputs(Bq, Nq, F, H, Mc, t, gen, dtype=torch.bfloat16):
+    q = torch.randn(Bq, Nq, F, generator=gen, device="cuda").to(dtype)
+    kv_new = torch.randn(Bq, Nq, 2 * F, generator=gen, device="cuda").to(dtype)
+    bias_hist = torch.randn(Mc, H, generator=gen, device="cuda")
+    bias_hist[t:] = -1e30
+    bias_new = torch.randn(1, H, generator=gen, device="cuda")
+    return q, kv_new, bias_hist, bias_new
+
+
+STAGED_SHAPES = [           # (B, N, Mc, H, D)
+    (1, 1, 8, 12, 64),      # B*N = 1
+    (2, 40, 1, 12, 64),     # Mc = 1, below the grid
+    (3, 1000, 24, 12, 64),  # not a multiple of the grid
+    (8, 1000, 32, 12, 64),  # the main path's shape
+    (2, 24, 8, 4, 16),      # ripor_small's D
+    (3, 50, 32, 4, 16),
+    (2, 30, 8, 2, 24),      # D = 24: the scalar path
+    (2, 30, 8, 2, 20),      # F = 40: rows of no 16-byte multiple, so the
+                            # producer warp copies without bulk copies
+]
+
+
+@pytest.mark.parametrize("quant", [None, "int8", "int4"])
+@pytest.mark.parametrize("Bq,Nq,Mc,H,D", STAGED_SHAPES)
+def test_staged_seq_shapes(Bq, Nq, Mc, H, D, quant, gen):
+    F, L = H * D, 2
+    cache = _rows(quant, (Bq, Nq, L, Mc), F, H, gen)
+    t = max(Mc - 1, 1)
+    q, kv_new, bias_hist, bias_new = _attn_inputs(Bq, Nq, F, H, Mc, t, gen)
+    args = (q, kv_new, cache, 1, bias_hist, bias_new, H, quant)
+    before = KERNEL_LAUNCHES["step_attention_seq"]
+    a, b = step_attention_seq(*args), step_attention_seq_plain(*args)
+    torch.cuda.synchronize()
+    if quant:
+        (a, aq), (b, bq) = a, b
+        assert torch.equal(aq, bq)
+    torch.testing.assert_close(a.float(), b.float(), rtol=2e-2, atol=2e-2)
+    assert KERNEL_LAUNCHES["step_attention_seq"] == before + 1
+
+
+@pytest.mark.parametrize("quant", [None, "int8", "int4"])
+def test_staged_unaligned_inputs(quant, gen):
+    """q and kv_new 2 bytes off a 16-byte boundary (contiguous views of
+    a larger buffer): no bulk copies, the same results."""
+    Bq, Nq, Mc, H, D = 2, 100, 8, 12, 64
+    F = H * D
+    cache = _rows(quant, (Bq, Nq, 2, Mc), F, H, gen)
+    q, kv_new, bias_hist, bias_new = _attn_inputs(Bq, Nq, F, H, Mc, 5, gen)
+    buf = torch.empty(1 + q.numel() + kv_new.numel(), device="cuda",
+                      dtype=q.dtype)
+    qu = buf[1:1 + q.numel()].view_as(q)
+    kvu = buf[1 + q.numel():].view_as(kv_new)
+    qu.copy_(q)
+    kvu.copy_(kv_new)
+    assert qu.data_ptr() % 16 != 0
+    a = step_attention_seq(qu, kvu, cache, 1, bias_hist, bias_new, H, quant)
+    b = step_attention_seq_plain(q, kv_new, cache, 1, bias_hist, bias_new, H,
+                                 quant)
+    torch.cuda.synchronize()
+    if quant:
+        (a, aq), (b, bq) = a, b
+        assert torch.equal(aq, bq)
+    torch.testing.assert_close(a.float(), b.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("quant", [None, "int4"])
+def test_staged_seq_f32_single_stage(quant, gen):
+    """f32 q (and f32 exact rows) at t5-base width, Mc = 32: the exact
+    cache takes one stage; f32 math within 1e-4, quantized rows within
+    2e-2."""
+    from ripor_tpu_torch.ops.staging import stage_plan
+    Bq, Nq, Mc, H, D = 2, 300, 32, 12, 64
+    F = H * D
+    cache = _rows(quant, (Bq, Nq, 2, Mc), F, H, gen, dtype=torch.float32)
+    if quant is None:
+        assert stage_plan(None, 4, 4, Mc, F, H).stages == 1
+    q, kv_new, bias_hist, bias_new = _attn_inputs(Bq, Nq, F, H, Mc, Mc - 3,
+                                                  gen, dtype=torch.float32)
+    args = (q, kv_new, cache, 0, bias_hist, bias_new, H, quant)
+    a, b = step_attention_seq(*args), step_attention_seq_plain(*args)
+    torch.cuda.synchronize()
+    if quant:
+        (a, aq), (b, bq) = a, b
+        assert torch.equal(aq, bq)
+    tol = 1e-4 if quant is None else 2e-2
+    torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("src_kind", ["random", "repeated", "identity"])
+@pytest.mark.parametrize("t,write_back", [(0, True), (1, True), (7, False),
+                                          (7, True)])
+@pytest.mark.parametrize("quant,kvg_q8", [(None, False), ("int8", False),
+                                          ("int8", True), ("int4", False)])
+@pytest.mark.parametrize("Bq,Nq,Mc,H,D", [(1, 1, 8, 12, 64),
+                                          (3, 333, 8, 12, 64),
+                                          (2, 24, 8, 4, 16),
+                                          (2, 30, 8, 2, 24),
+                                          (2, 30, 8, 2, 20)])
+def test_staged_attend_reorder_modes(Bq, Nq, Mc, H, D, quant, kvg_q8, t,
+                                     write_back, src_kind, gen):
+    F, L = H * D, 2
+    cache = _rows(quant, (L, Bq, Nq, Mc), F, H, gen)
+    if src_kind == "identity":
+        src = torch.arange(Nq, device="cuda", dtype=torch.int32).repeat(Bq, 1)
+    elif src_kind == "repeated":
+        src = torch.randint(0, 2, (Bq, Nq), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    else:
+        src = torch.randint(0, Nq, (Bq, Nq), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    kvg = torch.randn(Bq, Nq, L, 2 * F, generator=gen, device="cuda")
+    kvg = (quantize_rows_plain(kvg, H) if kvg_q8
+           else kvg.bfloat16()).reshape(Bq, Nq, -1)
+    q, kv_new, bias_hist, bias_new = _attn_inputs(Bq, Nq, F, H, Mc, t, gen)
+    before = KERNEL_LAUNCHES["step_attend_reorder"]
+    a, da = step_attend_reorder(q, kv_new, kvg, cache,
+                                torch.zeros_like(cache), src, 1, t,
+                                bias_hist, bias_new, H, write_back=write_back)
+    b, db = step_attend_reorder_plain(q, kv_new, kvg, cache,
+                                      torch.zeros_like(cache), src, 1, t,
+                                      bias_hist, bias_new, H,
+                                      write_back=write_back)
+    torch.cuda.synchronize()
+    assert torch.equal(da, db)
+    torch.testing.assert_close(a.float(), b.float(), rtol=2e-2, atol=2e-2)
+    assert KERNEL_LAUNCHES["step_attend_reorder"] == before + 1
+
+
+@pytest.mark.parametrize("Mc", [1, 24, 32])
+@pytest.mark.parametrize("quant,kvg_q8", [("int4", False), ("int8", True),
+                                          (None, False)])
+def test_staged_attend_reorder_segments(Mc, quant, kvg_q8, gen):
+    """K4 at the segment sizes at t5-base width, slot t-1 = Mc-1."""
+    Bq, Nq, H, D, L = 2, 200, 12, 64, 2
+    F = H * D
+    cache = _rows(quant, (L, Bq, Nq, Mc), F, H, gen)
+    src = torch.randint(0, Nq, (Bq, Nq), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    kvg = torch.randn(Bq, Nq, L, 2 * F, generator=gen, device="cuda")
+    kvg = (quantize_rows_plain(kvg, H) if kvg_q8
+           else kvg.bfloat16()).reshape(Bq, Nq, -1)
+    q, kv_new, bias_hist, bias_new = _attn_inputs(Bq, Nq, F, H, Mc, Mc, gen)
+    a, da = step_attend_reorder(q, kv_new, kvg, cache, torch.zeros_like(cache),
+                                src, 0, Mc, bias_hist, bias_new, H)
+    b, db = step_attend_reorder_plain(q, kv_new, kvg, cache,
+                                      torch.zeros_like(cache), src, 0, Mc,
+                                      bias_hist, bias_new, H)
+    torch.cuda.synchronize()
+    assert torch.equal(da, db)
+    torch.testing.assert_close(a.float(), b.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("quant", [None, "int8", "int4"])
+@pytest.mark.parametrize("scale", [1.0, 1e-30, 1e-38, 1e30, 3e38])
+def test_staged_packed_products_bitwise(quant, scale, gen):
+    """The kernels' packed bf16x2 products (k*q and p*v) against the plain
+    version's products (formed in f32, rounded to bf16), bit for bit, on q
+    and p near the ends of bf16's range."""
+    from ripor_tpu_torch.ops._build import kernel_fn
+    from ripor_tpu_torch.ops.attend_reorder import KIND_CODE, decode_rows
+    R, H, D = 64, 12, 64
+    F = H * D
+    rows = _rows(quant, (R,), F, H, gen)
+    if quant is None:
+        rows = (rows.float() * scale ** 0.5).bfloat16()
+    q = (torch.randn(F, generator=gen, device="cuda") * scale).bfloat16()
+    pe = (torch.rand(R, generator=gen, device="cuda") * scale).bfloat16()
+    k, v, _, _ = decode_rows(rows, F, H, quant)
+    want_kq, want_pv = k * q, pe[:, None] * v
+    got_kq = torch.empty(R, F, device="cuda", dtype=torch.bfloat16)
+    got_pv = torch.empty_like(got_kq)
+    fn = kernel_fn("step_attention_seq", "staged_products", 5, 4)
+    rc = fn(q.data_ptr(), rows.data_ptr(), pe.data_ptr(), got_kq.data_ptr(),
+            got_pv.data_ptr(), R, F, rows.shape[-1], KIND_CODE[quant],
+            torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    assert torch.equal(got_kq.view(torch.int16), want_kq.view(torch.int16))
+    assert torch.equal(got_pv.view(torch.int16), want_pv.view(torch.int16))
