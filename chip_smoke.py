@@ -7,18 +7,21 @@ Phases, top to bottom; any failed check raises, so the exit code is
 nonzero and no result line is printed:
 
   1. build the hand-written CUDA kernels from ripor_tpu_torch/csrc/, and
-     print ptxas's registers, stack and spill bytes of K2 and K4;
+     print ptxas's registers, stack and spill bytes of the staged kernels
+     K2, K4, K5 and K8;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes its path gives it (t5-base widths, B=8, N=1000, L=12, Mc in
-     {8, 32}; K2 and K4 at every segment size, Mc in {8, 16, 24, 32},
-     with their launch plans): K1-K3 with exact bf16, int8 and int4 rows;
-     K4 with int4,
-     int8 (exact and pre-quantized kvg rows) and bf16 rows; K5 and K6 in
-     bf16; K8 in bf16 and f32 at two slots t; K7 in bf16, int8 and on
-     narrow blocks. Time kernel, plain version and one PyTorch call of
-     the same function where there is one (advanced indexing for the
-     gathers, scaled_dot_product_attention for K8): a yardstick the port
-     never uses;
+     {8, 32}; the staged kernels at every segment size, Mc in {8, 16, 24,
+     32}, with their launch plans): K1-K3 with exact bf16, int8 and int4
+     rows; K4 with int4, int8 (exact and pre-quantized kvg rows) and bf16
+     rows; K5 in bf16 (and f32 at Mc=32) and K6 in bf16; K8 in bf16 and
+     f32 at two slots t; K7 in bf16, int8 and on narrow blocks; then the
+     slabs no stage holds (slot chunks, one layer): K2 and K4 at t5-3b
+     widths in bf16 and int8 rows and at t5-large in f32, K5 and K8 at
+     t5-large in f32 and t5-3b in bf16. Time kernel, plain version and
+     one PyTorch call of the same function where there is one (advanced
+     indexing for the gathers, scaled_dot_product_attention for K5 and
+     K8): a yardstick the port never uses;
   3. agreement on a small input: the port's beam search through the
      kernels on the card against its plain path on the CPU (the path the
      CPU tests hold against the JAX package), on the megarow and deferred
@@ -93,14 +96,16 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def random_rows(quant, lead, g):
-    """Valid cache rows [*lead, RW]: random bf16 rows, or random int8/int4
-    payload bytes with per-head exponents in [-6, -1]."""
+def random_rows(quant, lead, g, width=(F, H), dtype=None):
+    """Valid cache rows [*lead, RW] at width (F, H): random exact rows
+    (bf16 unless ``dtype``), or random int8/int4 payload bytes with
+    per-head exponents in [-6, -1]."""
     import torch
     from ripor_tpu_torch.ops import SCALE_COLS
+    F, H = width
     if quant is None:
         return torch.randn(*lead, 2 * F, generator=g, device="cuda",
-                           dtype=torch.bfloat16)
+                           dtype=dtype or torch.bfloat16)
     payload = 2 * F if quant == "int8" else F
     c = torch.randint(-128, 128, (*lead, payload + SCALE_COLS),
                       generator=g, device="cuda", dtype=torch.int8)
@@ -117,13 +122,15 @@ def unique_sources(src):
     return sum(int(torch.unique(src[b]).numel()) for b in range(B))
 
 
-def attention_inputs(Mc, t, g):
-    """q [B, N, F], kv_new [B, N, 2F] (bf16) and the biases of step t
-    (slots >= t masked)."""
+def attention_inputs(Mc, t, g, width=(F, H), dtype=None):
+    """q [B, N, F], kv_new [B, N, 2F] (bf16 unless ``dtype``) and the
+    biases of step t (slots >= t masked), at width (F, H)."""
     import torch
-    q = torch.randn(B, N, F, generator=g, device="cuda", dtype=torch.bfloat16)
+    F, H = width
+    dtype = dtype or torch.bfloat16
+    q = torch.randn(B, N, F, generator=g, device="cuda", dtype=dtype)
     kv_new = torch.randn(B, N, 2 * F, generator=g, device="cuda",
-                         dtype=torch.bfloat16)
+                         dtype=dtype)
     bias_hist = torch.randn(Mc, H, generator=g, device="cuda")
     bias_hist[t:] = -1e30
     bias_new = torch.randn(1, H, generator=g, device="cuda")
@@ -237,16 +244,20 @@ def print_checks(recs):
         print("kernel_check", json.dumps({"kernel": name, "case": tg, **r}))
 
 
-def step_attention_seq_case(results, tag, quant, cache, Mc, t, g):
-    """K2 at layer 5 of a [B, N, L, Mc, RW] cache against its plain
+def step_attention_seq_case(results, tag, quant, cache, Mc, t, g, layer=5,
+                            width=(F, H), tol=2e-2):
+    """K2 at ``layer`` of a [B, N, L, Mc, RW] cache against its plain
     version, with the QFUSE rows for quantized caches (bit-equal)."""
     import torch
     from ripor_tpu_torch.ops import (step_attention_seq,
                                      step_attention_seq_plain)
     from ripor_tpu_torch.ops.staging import stage_plan
+    F, H = width
     RW = cache.shape[-1]
-    q, kv_new, bias_hist, bias_new = attention_inputs(Mc, t, g)
-    args = (q, kv_new, cache, 5, bias_hist, bias_new, H, quant)
+    q, kv_new, bias_hist, bias_new = attention_inputs(
+        Mc, t, g, width, torch.float32 if cache.dtype == torch.float32
+        else None)
+    args = (q, kv_new, cache, layer, bias_hist, bias_new, H, quant)
     got = step_attention_seq(*args)
     want = step_attention_seq_plain(*args)
     torch.cuda.synchronize()
@@ -255,18 +266,67 @@ def step_attention_seq_case(results, tag, quant, cache, Mc, t, g):
         check(torch.equal(got_q, want_q),
               f"step_attention_seq emit_quant rows {tag}")
     err = (got.float() - want.float()).abs().max().item()
-    check(torch.allclose(got.float(), want.float(), rtol=2e-2, atol=2e-2),
+    check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
           f"step_attention_seq {tag}: max abs err {err}")
     plan = stage_plan(quant, cache.element_size(), q.element_size(), Mc, F, H)
     rec = dict(ms=cuda_ms(lambda: step_attention_seq(*args), 20),
                plain_ms=cuda_ms(lambda: step_attention_seq_plain(*args), 3),
                library_ms=None, max_abs_err=err, stages=plan.stages,
-               smem_bytes=plan.smem_bytes)
+               chunk_slots=plan.chunk_slots, smem_bytes=plan.smem_bytes)
     outs = nbytes(got) + (B * N * RW if quant else 0)
     rec["bound_ms"], rec["bound_by"] = bound(
         nbytes(q, kv_new, bias_hist, bias_new) + outs
         + B * N * Mc * RW * cache.element_size(), 4.0 * B * N * (Mc + 1) * F)
     results.append(("step_attention_seq", tag, rec))
+
+
+def step_attend_reorder_case(results, tag, quant, kvg_q8, Mc, g, layer=5,
+                             width=(F, H), Lw=L, dtype=None, tol=2e-2):
+    """K4 at ``layer`` of a [Lw, B, N, Mc, RW] cache at t = Mc - 1 with
+    write_back on against its plain version: the written layer bit-equal,
+    the attention within ``tol``."""
+    import torch
+    from ripor_tpu_torch.ops import (step_attend_reorder,
+                                     step_attend_reorder_plain)
+    from ripor_tpu_torch.ops.staging import stage_plan
+    F, H = width
+    cache = random_rows(quant, (Lw, B, N, Mc), g, width, dtype)
+    RW, esz = cache.shape[-1], cache.element_size()
+    t = Mc - 1
+    src = torch.randint(0, N, (B, N), generator=g, device="cuda",
+                        dtype=torch.int32)
+    kvg = (random_rows("int8", (B, N, Lw), g, width) if kvg_q8 else
+           random_rows(None, (B, N, Lw), g, width, dtype)).reshape(B, N, -1)
+    q, kv_new, bias_hist, bias_new = attention_inputs(Mc, t, g, width, dtype)
+    dst, dst_plain = torch.empty_like(cache), torch.empty_like(cache)
+
+    def run(fn, out):
+        return fn(q, kv_new, kvg, cache, out, src, layer, t, bias_hist,
+                  bias_new, H)[0]
+
+    got = run(step_attend_reorder, dst)
+    want = run(step_attend_reorder_plain, dst_plain)
+    torch.cuda.synchronize()
+    check(torch.equal(dst[layer], dst_plain[layer]),
+          f"step_attend_reorder cache_dst {tag}")
+    err = (got.float() - want.float()).abs().max().item()
+    check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+          f"step_attend_reorder {tag}: max abs err {err}")
+    plan = stage_plan(quant, esz, q.element_size(), Mc, F, H,
+                      exact_kvg=quant is not None and not kvg_q8)
+    rec = dict(ms=cuda_ms(lambda: run(step_attend_reorder, dst), 20),
+               plain_ms=cuda_ms(lambda: run(
+                   step_attend_reorder_plain, dst_plain), 3),
+               library_ms=None, max_abs_err=err, stages=plan.stages,
+               chunk_slots=plan.chunk_slots, smem_bytes=plan.smem_bytes)
+    slab = Mc * RW * esz
+    rec["bound_ms"], rec["bound_by"] = bound(
+        unique_sources(src) * slab + B * N * slab
+        + nbytes(q, kv_new, src, bias_hist, bias_new, got)
+        + nbytes(kvg) // Lw, 4.0 * B * N * (Mc + 1) * F)
+    results.append(("step_attend_reorder", tag, rec))
+    print("kernel_check", json.dumps({
+        "kernel": "step_attend_reorder", "case": tag, **rec}))
 
 
 def deferred_checks(results, g):
@@ -275,90 +335,161 @@ def deferred_checks(results, g):
     pre-quantized kvg rows) and bf16 caches. The written layer is
     bit-equal, the attention within 2e-2."""
     import torch
-    from ripor_tpu_torch.ops import (step_attend_reorder,
-                                     step_attend_reorder_plain)
-    from ripor_tpu_torch.ops.staging import stage_plan
     for Mc in SEGMENTS:
         for quant, kvg_q8 in (("int4", False), ("int8", False),
                               ("int8", True), (None, False)):
             tag = f"{quant or 'bf16'}{' kvg int8' if kvg_q8 else ''} Mc={Mc}"
-            cache = random_rows(quant, (L, B, N, Mc), g)
-            RW, esz = cache.shape[-1], cache.element_size()
-            t = Mc - 1
-            src = torch.randint(0, N, (B, N), generator=g, device="cuda",
-                                dtype=torch.int32)
-            kvg = (random_rows("int8", (B, N, L), g) if kvg_q8 else
-                   random_rows(None, (B, N, L), g)).reshape(B, N, -1)
-            q, kv_new, bias_hist, bias_new = attention_inputs(Mc, t, g)
-            dst, dst_plain = torch.empty_like(cache), torch.empty_like(cache)
-
-            def run(fn, out):
-                return fn(q, kv_new, kvg, cache, out, src, 5, t, bias_hist,
-                          bias_new, H)[0]
-
-            got = run(step_attend_reorder, dst)
-            want = run(step_attend_reorder_plain, dst_plain)
-            torch.cuda.synchronize()
-            check(torch.equal(dst[5], dst_plain[5]),
-                  f"step_attend_reorder cache_dst {tag}")
-            err = (got.float() - want.float()).abs().max().item()
-            check(torch.allclose(got.float(), want.float(), rtol=2e-2,
-                                 atol=2e-2), f"step_attend_reorder {tag}: "
-                                             f"max abs err {err}")
-            plan = stage_plan(quant, esz, q.element_size(), Mc, F, H,
-                              exact_kvg=quant is not None and not kvg_q8)
-            rec = dict(ms=cuda_ms(lambda: run(step_attend_reorder, dst), 20),
-                       plain_ms=cuda_ms(lambda: run(
-                           step_attend_reorder_plain, dst_plain), 3),
-                       library_ms=None, max_abs_err=err, stages=plan.stages,
-                       smem_bytes=plan.smem_bytes)
-            slab = Mc * RW * esz
-            rec["bound_ms"], rec["bound_by"] = bound(
-                unique_sources(src) * slab + B * N * slab
-                + nbytes(q, kv_new, src, bias_hist, bias_new, got)
-                + nbytes(kvg) // L, 4.0 * B * N * (Mc + 1) * F)
-            results.append(("step_attend_reorder", tag, rec))
-            print("kernel_check", json.dumps({
-                "kernel": "step_attend_reorder", "case": tag, **rec}))
-            del cache, dst, dst_plain, kvg, got, want
+            step_attend_reorder_case(results, tag, quant, kvg_q8, Mc, g)
             torch.cuda.empty_cache()
 
 
+# slabs larger than one stage (slot chunks): (kernel, rows, width) at
+# Mc = 32 on a lead of one layer, B = 8, N = 1000
+T5_3B, T5_LARGE = (4096, 32), (1024, 16)
+OVERSIZED = (("K2", "bf16", T5_3B), ("K2", "int8", T5_3B),
+             ("K2", "f32", T5_LARGE), ("K4", "bf16", T5_3B),
+             ("K4", "int8", T5_3B), ("K4", "f32", T5_LARGE),
+             ("K5", "f32", T5_LARGE), ("K5", "bf16", T5_3B),
+             ("K8", "f32", T5_LARGE), ("K8", "bf16", T5_3B))
+
+
+def oversized_checks(results, g):
+    """Phase 2, the staged kernels on slabs no stage can hold, against
+    their plain versions (f32 within 1e-4, else 2e-2): K2 and K4 at t5-3b
+    widths in bf16 and int8 rows (K4's int8 case in its quantize mode) and
+    at t5-large in f32; K5 and K8 at t5-large in f32 and at t5-3b in bf16;
+    each with its plan (slots a stage holds)."""
+    import torch
+    Mc = 32
+    for kernel, rows, width in OVERSIZED:
+        Fw, Hw = width
+        name = "t5-3b" if width == T5_3B else "t5-large"
+        tag = f"{rows} Mc={Mc} {name} (F={Fw}, H={Hw}), L=1"
+        dtype = torch.float32 if rows == "f32" else torch.bfloat16
+        tol = 1e-4 if rows == "f32" else 2e-2
+        quant = rows if rows == "int8" else None
+        if kernel == "K2":
+            cache = random_rows(quant, (B, N, 1, Mc), g, width, dtype)
+            step_attention_seq_case(results, tag, quant, cache, Mc, Mc - 1,
+                                    g, 0, width, tol)
+            print("kernel_check", json.dumps({
+                "kernel": "step_attention_seq", "case": tag,
+                **results[-1][2]}))
+            del cache
+        elif kernel == "K4":
+            step_attend_reorder_case(results, tag, quant, False, Mc, g, 0,
+                                     width, 1, dtype, tol)
+        else:
+            kv = torch.randn(1, 2, B, N, Mc, Fw, generator=g, device="cuda",
+                             dtype=dtype)
+            q, kv_new, bias_hist, bias_new = attention_inputs(
+                Mc, Mc - 1, g, width, dtype)
+            if kernel == "K5":
+                step_attention_fused_case(
+                    results, tag, kv, q, kv_new[..., :Fw].contiguous(),
+                    kv_new[..., Fw:].contiguous(), bias_hist, bias_new, Hw,
+                    tol, 0, yardstick=False)
+            else:
+                bias_hist[Mc - 1:] = torch.randn(1, Hw, generator=g,
+                                                 device="cuda")
+                step_attention_case(results, tag, q, kv[0, 0], kv[0, 1],
+                                    bias_hist, Hw, tol, yardstick=False)
+            del kv, q, kv_new
+        check(results[-1][2]["chunk_slots"] < Mc,
+              f"{kernel} {tag}: the plan does not chunk")
+        torch.cuda.empty_cache()
+
+
+def sdpa_yardstick(q, keys, values, mask, H):
+    """One scaled_dot_product_attention call on [B*N, H, 1|P, D] views of
+    q [B, N, F] and keys, values [B, N, P, F], with the additive mask [H,
+    P] and no scaling (T5): a yardstick the port never calls. Returns the
+    call and its output as [B, N, F]."""
+    import torch.nn.functional as tf
+    Bq, Nq, P, Fq = keys.shape
+    D = Fq // H
+    qh = q.view(Bq * Nq, 1, H, D).transpose(1, 2)
+    kh = keys.view(Bq * Nq, P, H, D).transpose(1, 2)
+    vh = values.view(Bq * Nq, P, H, D).transpose(1, 2)
+    m = mask.to(q.dtype).reshape(1, H, 1, P)
+
+    def sdpa():
+        return tf.scaled_dot_product_attention(qh, kh, vh, attn_mask=m,
+                                               scale=1.0)
+    return sdpa, sdpa().transpose(1, 2).reshape(Bq, Nq, Fq)
+
+
+def step_attention_fused_case(results, tag, cache, q, k_new, v_new,
+                              bias_hist, bias_new, Hh, tol, layer,
+                              yardstick=True):
+    """K5 at ``layer`` of a [L, 2, B, N, Mc, F] cache against its plain
+    version, with its plan, bound and (at the paths' shapes) the SDPA
+    yardstick over the Mc + 1 positions (keys and values concatenated
+    outside the timed call)."""
+    import torch
+    from ripor_tpu_torch.ops import (step_attention_fused,
+                                     step_attention_fused_plain)
+    from ripor_tpu_torch.ops.staging import stage_plan
+    Bq, Nq, Fq = q.shape
+    Mc = cache.shape[4]
+    args = (q, k_new, v_new, cache, layer, bias_hist, bias_new, Hh)
+    got = step_attention_fused(*args)
+    want = step_attention_fused_plain(*args)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+          f"step_attention_fused {tag}: max abs err {err}")
+    esz = cache.element_size()
+    plan = stage_plan(None, esz, esz, Mc, Fq, Hh, planes=True)
+    rec = dict(ms=cuda_ms(lambda: step_attention_fused(*args), 10),
+               plain_ms=cuda_ms(lambda: step_attention_fused_plain(*args), 2),
+               library_ms=None, max_abs_err=err, stages=plan.stages,
+               chunk_slots=plan.chunk_slots, smem_bytes=plan.smem_bytes)
+    if yardstick:
+        keys = torch.cat([cache[layer, 0], k_new[:, :, None]], dim=2)
+        vals = torch.cat([cache[layer, 1], v_new[:, :, None]], dim=2)
+        sdpa, lib = sdpa_yardstick(q, keys, vals,
+                                   torch.cat([bias_hist, bias_new]).T, Hh)
+        rec.update(library_ms=cuda_ms(sdpa, 10),
+                   library="scaled_dot_product_attention",
+                   library_max_abs_err=(
+                       lib.float() - want.float()).abs().max().item())
+        del keys, vals, lib
+    rec["bound_ms"], rec["bound_by"] = bound(
+        2 * Bq * Nq * Mc * Fq * esz
+        + nbytes(q, k_new, v_new, bias_hist, bias_new, got),
+        4.0 * Bq * Nq * (Mc + 1) * Fq)
+    results.append(("step_attention_fused", tag, rec))
+    print("kernel_check", json.dumps({"kernel": "step_attention_fused",
+                                      "case": tag, **rec}))
+
+
 def non_deferred_checks(results, g):
-    """Phase 2, K5 (layer 5, within 2e-2) and K6 (the non-deferred
-    reorder over the L*2*B planes with src tiled, bit-equal) against
-    their plain versions on a bf16 [L, 2, B, N, Mc, F] cache."""
+    """Phase 2, K5 (layer 5; bf16 at every segment size within 2e-2, f32
+    at Mc=32 within 1e-4) and K6 (the non-deferred reorder over the L*2*B
+    planes with src tiled, bit-equal; Mc in {8, 32}) against their plain
+    versions on a [L, 2, B, N, Mc, F] cache."""
     import torch
     from ripor_tpu_torch.ops import (beam_gather_update,
-                                     beam_gather_update_plain,
-                                     step_attention_fused,
-                                     step_attention_fused_plain)
-    for Mc in (8, 32):
-        tag = f"bf16 Mc={Mc}"
+                                     beam_gather_update_plain)
+    for Mc, dtype in ([(m, torch.bfloat16) for m in SEGMENTS]
+                      + [(32, torch.float32)]):
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        tag = f"{name} Mc={Mc}"
         t = Mc - 1
         cache = torch.randn(L, 2, B, N, Mc, F, generator=g, device="cuda",
-                            dtype=torch.bfloat16)
+                            dtype=dtype)
         q, kv_new, bias_hist, bias_new = attention_inputs(Mc, t, g)
-        k_new = kv_new[..., :F].contiguous()
-        v_new = kv_new[..., F:].contiguous()
-        args = (q, k_new, v_new, cache, 5, bias_hist, bias_new, H)
-        got = step_attention_fused(*args)
-        want = step_attention_fused_plain(*args)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        check(torch.allclose(got.float(), want.float(), rtol=2e-2,
-                             atol=2e-2),
-              f"step_attention_fused {tag}: max abs err {err}")
-        rec = dict(ms=cuda_ms(lambda: step_attention_fused(*args), 10),
-                   plain_ms=cuda_ms(lambda: step_attention_fused_plain(
-                       *args), 3),
-                   library_ms=None, max_abs_err=err)
-        rec["bound_ms"], rec["bound_by"] = bound(
-            2 * B * N * Mc * F * cache.element_size()
-            + nbytes(q, k_new, v_new, bias_hist, bias_new, got),
-            4.0 * B * N * (Mc + 1) * F)
-        results.append(("step_attention_fused", tag, rec))
-        del got, want
+        q = q.to(dtype)
+        k_new = kv_new[..., :F].to(dtype).contiguous()
+        v_new = kv_new[..., F:].to(dtype).contiguous()
+        step_attention_fused_case(results, tag, cache, q, k_new, v_new,
+                                  bias_hist, bias_new, H,
+                                  2e-2 if name == "bf16" else 1e-4, 5)
+        if name != "bf16" or Mc not in (SEGMENTS[0], SEGMENTS[-1]):
+            del cache
+            torch.cuda.empty_cache()
+            continue
 
         G = L * 2 * B
         flat = cache.view(G, N, Mc, F)
@@ -386,66 +517,68 @@ def non_deferred_checks(results, g):
             L * 2 * unique_sources(src) * slab + G * N * slab
             + nbytes(kvg, src_rep))
         results.append(("beam_gather_update", tag, rec))
-        for name, tg, r in results[-2:]:
-            print("kernel_check", json.dumps({"kernel": name, "case": tg,
-                                              **r}))
+        print("kernel_check", json.dumps({"kernel": "beam_gather_update",
+                                          "case": tag, **rec}))
         del cache, flat, out, kvg
         torch.cuda.empty_cache()
+
+
+def step_attention_case(results, tag, q, ck, cv, bias, Hh, tol,
+                        yardstick=True):
+    """K8 over K and V planes [B, N, Mc, F] against its plain version,
+    with its plan, bound and (at the paths' shapes) the SDPA yardstick."""
+    import torch
+    from ripor_tpu_torch.ops import step_attention, step_attention_plain
+    from ripor_tpu_torch.ops.staging import stage_plan
+    Bq, Nq, Mc, Fq = ck.shape
+    args = (q, ck, cv, bias, Hh)
+    got = step_attention(*args)
+    want = step_attention_plain(*args)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+          f"step_attention {tag}: max abs err {err}")
+    esz = ck.element_size()
+    plan = stage_plan(None, esz, esz, Mc, Fq, Hh, planes=True, new=False)
+    rec = dict(ms=cuda_ms(lambda: step_attention(*args), 10),
+               plain_ms=cuda_ms(lambda: step_attention_plain(*args), 2),
+               library_ms=None, max_abs_err=err, stages=plan.stages,
+               chunk_slots=plan.chunk_slots, smem_bytes=plan.smem_bytes)
+    if yardstick:
+        sdpa, lib = sdpa_yardstick(q, ck, cv, bias.T, Hh)
+        rec.update(library_ms=cuda_ms(sdpa, 10),
+                   library="scaled_dot_product_attention",
+                   library_max_abs_err=(
+                       lib.float() - want.float()).abs().max().item())
+        del lib
+    rec["bound_ms"], rec["bound_by"] = bound(
+        nbytes(q, ck, cv, bias, got), 4.0 * Bq * Nq * Mc * Fq)
+    results.append(("step_attention", tag, rec))
+    print("kernel_check", json.dumps({"kernel": "step_attention",
+                                      "case": tag, **rec}))
 
 
 def write_attend_checks(results, g):
     """Phase 2, the write-then-attend kernels against their plain
     versions: K8 over one layer's K and V planes [B, N, Mc, F] (bf16
-    within 2e-2, f32 within 1e-4) at t = Mc - 1 and a t in the middle
-    (slots above t masked), and K7 over the [L*2*B, N, Mc, F] view of the
-    stacked cache (bf16, int8 and a narrow int8 block: bit-equal)."""
+    within 2e-2, f32 within 1e-4) at every segment size, at t = Mc - 1 and
+    a t in the middle (slots above t masked), and K7 over the [L*2*B, N,
+    Mc, F] view of the stacked cache (bf16, int8 and a narrow int8 block:
+    bit-equal)."""
     import torch
-    import torch.nn.functional as tf
     from ripor_tpu_torch.ops import (beam_gather_blocks,
-                                     beam_gather_blocks_plain,
-                                     step_attention, step_attention_plain)
-    D = F // H
-    for Mc in (8, 32):
+                                     beam_gather_blocks_plain)
+    for Mc in SEGMENTS:
         for dtype, name, tol in ((torch.bfloat16, "bf16", 2e-2),
                                  (torch.float32, "f32", 1e-4)):
             kv = torch.randn(2, B, N, Mc, F, generator=g, device="cuda",
                              dtype=dtype)
             q = torch.randn(B, N, F, generator=g, device="cuda", dtype=dtype)
             for t in (Mc - 1, Mc // 2):
-                tag = f"{name} Mc={Mc} t={t}"
                 bias = torch.randn(Mc, H, generator=g, device="cuda")
                 bias[t + 1:] = -1e30
-                args = (q, kv[0], kv[1], bias, H)
-                got = step_attention(*args)
-                want = step_attention_plain(*args)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                check(torch.allclose(got.float(), want.float(), rtol=tol,
-                                     atol=tol),
-                      f"step_attention {tag}: max abs err {err}")
-                # the yardstick: one SDPA call on [B*N, H, 1|Mc, D] views,
-                # the bias as an [H, 1, Mc] mask, no scaling (T5)
-                qh = q.view(B * N, 1, H, D).transpose(1, 2)
-                kh = kv[0].view(B * N, Mc, H, D).transpose(1, 2)
-                vh = kv[1].view(B * N, Mc, H, D).transpose(1, 2)
-                mask = bias.T.to(dtype).reshape(1, H, 1, Mc)
-
-                def sdpa():
-                    return tf.scaled_dot_product_attention(
-                        qh, kh, vh, attn_mask=mask, scale=1.0)
-                lib = sdpa().transpose(1, 2).reshape(B, N, F)
-                rec = dict(ms=cuda_ms(lambda: step_attention(*args), 10),
-                           plain_ms=cuda_ms(
-                               lambda: step_attention_plain(*args), 3),
-                           library_ms=cuda_ms(sdpa, 10), max_abs_err=err,
-                           library_max_abs_err=(
-                               lib.float() - want.float()).abs().max().item())
-                rec["bound_ms"], rec["bound_by"] = bound(
-                    nbytes(q, kv, bias, got), 4.0 * B * N * Mc * F)
-                results.append(("step_attention", tag, rec))
-                print("kernel_check", json.dumps({
-                    "kernel": "step_attention", "case": tag, **rec}))
-                del got, want, lib
+                step_attention_case(results, f"{name} Mc={Mc} t={t}", q,
+                                    kv[0], kv[1], bias, H, tol)
             del kv, q
             torch.cuda.empty_cache()
 
@@ -586,6 +719,9 @@ def where_time_goes(label, search, unprofiled_s):
 
 MEGAROW_KERNELS = ("reorder_cache_all", "step_attention_seq",
                    "beam_gather_rows")
+# the kernels on the staged core (csrc/attend_staged.cuh)
+STAGED_KERNELS = ("step_attention_seq", "step_attend_reorder",
+                  "step_attention_fused", "step_attention")
 
 
 def make_world():
@@ -809,8 +945,7 @@ def main():
     _build.build_all()
     print("build", json.dumps({"seconds": time.monotonic() - t0,
                                **_build.BUILD_INFO}))
-    for rec in ptxas_report(_build.BUILD_INFO["dir"],
-                            ("step_attention_seq", "step_attend_reorder")):
+    for rec in ptxas_report(_build.BUILD_INFO["dir"], STAGED_KERNELS):
         print("ptxas", json.dumps(rec))
 
     results = []
@@ -819,6 +954,7 @@ def main():
     deferred_checks(results, g)
     non_deferred_checks(results, g)
     write_attend_checks(results, g)
+    oversized_checks(results, g)
     small_agreement()
     world = make_world()
     launches = {}

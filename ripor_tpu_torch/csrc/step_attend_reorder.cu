@@ -29,7 +29,10 @@
 // scores run, then fence it for the async proxy. One bulk store writes
 // the patched slab to cache_dst (early when nothing is patched by
 // threads), and the stage is released only after the store has read it.
-// Every cache byte is read from HBM once and written once.
+// Every cache byte is read from HBM once and written once. A slab larger
+// than one stage streams through the ring in slot chunks, twice: the score
+// pass stores each chunk (slot s patched in the chunk that holds it), the V
+// pass reads the chunks again and stores nothing.
 #include <cuda_bf16.h>
 #include <stdint.h>
 
@@ -43,9 +46,9 @@ namespace {
 
 // KIND: 0 exact rows (dtype T, RW = 2F), 1 int8 rows, 2 packed int4 rows.
 // KVG_Q8: kvg holds int8 cache rows [L*RW] (KIND 1 only), else exact
-// rows [L*2F] of T.
-template <typename T, int KIND, bool KVG_Q8>
-__global__ void __launch_bounds__(kThreads, 3)
+// rows [L*2F] of T. CHUNKED: the slab streams in slot chunks of mcs slots.
+template <typename T, int KIND, bool KVG_Q8, bool CHUNKED>
+__global__ void __launch_bounds__(kThreads, CHUNKED ? 1 : kMinBlocks)
 step_attend_reorder_kernel(const T* __restrict__ q,
                            const T* __restrict__ kv_new,
                            const char* __restrict__ kvg,
@@ -56,8 +59,8 @@ step_attend_reorder_kernel(const T* __restrict__ q,
                            const float* __restrict__ bias_new,
                            T* __restrict__ attn, int N, long long BN, int L,
                            int Mc, int F, int H, int RW, int layer, int t,
-                           int write_back, Layout lay, int stages, int vec,
-                           int bulk) {
+                           int write_back, int mcs, Layout lay, int stages,
+                           int vec, int bulk) {
   // in-kernel quantize mode: exact kvg rows into a quantized cache
   constexpr bool OVR_EXACT = KIND != 0 && !KVG_Q8;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -75,6 +78,7 @@ step_attend_reorder_kernel(const T* __restrict__ q,
              : 2LL * F * static_cast<long long>(sizeof(T));
   const int slot = t - 1;                     // -1 at t == 0: no insert
   const bool patch = OVR_EXACT && slot >= 0;  // slot s written by threads
+  const Chunks<CHUNKED> ch(Mc, mcs);
 
   init_barriers(full, empty, stages);
   stage_biases(reinterpret_cast<float*>(smem + lay.bias), bias_hist, bias_new,
@@ -82,34 +86,36 @@ step_attend_reorder_kernel(const T* __restrict__ q,
   __syncthreads();
 
   if (tid >= kConsumers) {  // the producer warp
-    long long i = 0;
-    for (long long beam = blockIdx.x; beam < BN; beam += gridDim.x, ++i) {
-      const int s = static_cast<int>(i % stages);
-      if (i >= stages) mbar_wait(&empty[s], ((i / stages) - 1) & 1);
-      unsigned char* st = smem + lay.stage0 + s * lay.stage_bytes;
-      const long long qb = static_cast<long long>(F) * sizeof(T);
+    int i = 0;
+    for (long long beam = blockIdx.x; beam < BN; beam += gridDim.x) {
       const char* from = cache_src + (lbn + beam / N * N + src[beam]) * slab;
       const char* ins = kvg + (beam * L + layer) * kvg_row_bytes;
-      if (bulk && lane == 0)
-        mbar_arrive_tx(&full[s], static_cast<uint32_t>(
-                                     slab + 3 * qb + (patch ? 2 * qb : 0)));
-      if (!OVR_EXACT && slot >= 0) {  // verbatim insert into slot s
-        const long long lo = slot * row_bytes;
-        stage_in(st + lay.slab, from, lo, &full[s], bulk, lane);
-        stage_in(st + lay.slab + lo, ins, row_bytes, &full[s], bulk, lane);
-        stage_in(st + lay.slab + lo + row_bytes, from + lo + row_bytes,
-                 slab - lo - row_bytes, &full[s], bulk, lane);
-      } else {
-        stage_in(st + lay.slab, from, slab, &full[s], bulk, lane);
-      }
-      if (patch) stage_in(st + lay.kg, ins, 2 * qb, &full[s], bulk, lane);
-      stage_in(st + lay.q, q + beam * F, qb, &full[s], bulk, lane);
-      stage_in(st + lay.kvn, kv_new + beam * 2 * F, 2 * qb, &full[s], bulk,
-               lane);
-      if (!bulk) {
-        __threadfence_block();
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&full[s]);
+      for (int j = 0; j < ch.loads(); ++j, ++i) {
+        const int s = i % stages;
+        if (i >= stages) mbar_wait(&empty[s], ((i / stages) - 1) & 1);
+        unsigned char* st = smem + lay.stage0 + s * lay.stage_bytes;
+        const long long qb = static_cast<long long>(F) * sizeof(T);
+        const int m0 = ch.m0(j), m1 = ch.m1(j);
+        const long long cb = (m1 - m0) * row_bytes;
+        const char* at = from + m0 * row_bytes;
+        if (bulk && lane == 0)
+          mbar_arrive_tx(&full[s], static_cast<uint32_t>(
+                                       cb + 3 * qb + (patch ? 2 * qb : 0)));
+        if (!OVR_EXACT && slot >= m0 && slot < m1) {
+          // verbatim insert into slot s
+          const long long lo = (slot - m0) * row_bytes;
+          stage_in(st + lay.slab, at, lo, &full[s], bulk, lane);
+          stage_in(st + lay.slab + lo, ins, row_bytes, &full[s], bulk, lane);
+          stage_in(st + lay.slab + lo + row_bytes, at + lo + row_bytes,
+                   cb - lo - row_bytes, &full[s], bulk, lane);
+        } else {
+          stage_in(st + lay.slab, at, cb, &full[s], bulk, lane);
+        }
+        if (patch) stage_in(st + lay.kg, ins, 2 * qb, &full[s], bulk, lane);
+        stage_in(st + lay.q, q + beam * F, qb, &full[s], bulk, lane);
+        stage_in(st + lay.kvn, kv_new + beam * 2 * F, 2 * qb, &full[s], bulk,
+                 lane);
+        stage_done(&full[s], bulk, lane);
       }
     }
     return;
@@ -117,39 +123,57 @@ step_attend_reorder_kernel(const T* __restrict__ q,
 
   const Core<T, KIND> core{lay, smem, Dims{Mc, F, H, F / H, row_bytes,
                                            vec != 0}};
-  long long i = 0;
-  for (long long beam = blockIdx.x; beam < BN; beam += gridDim.x, ++i) {
-    const int s = static_cast<int>(i % stages);
-    mbar_wait(&full[s], (i / stages) & 1);
-    unsigned char* st = smem + lay.stage0 + s * lay.stage_bytes;
-    char* stage_slab = reinterpret_cast<char*>(st + lay.slab);
-    char* to = cache_dst + (lbn + beam) * slab;
-    const Beam<T> b{stage_slab, reinterpret_cast<const T*>(st + lay.q),
-                    reinterpret_cast<const T*>(st + lay.kvn),
-                    patch ? reinterpret_cast<const T*>(st + lay.kg) : nullptr,
-                    patch ? slot : -1};
-    // the slab as loaded is the destination's: store it at once
-    if (write_back && bulk && !patch && tid == 0) {
-      fence_proxy_async();
-      bulk_store(to, stage_slab, static_cast<uint32_t>(slab));
+  int i = 0;
+  for (long long beam = blockIdx.x; beam < BN; beam += gridDim.x) {
+    for (int j = 0; j < ch.loads(); ++j, ++i) {
+      const int s = i % stages;
+      mbar_wait(&full[s], (i / stages) & 1);
+      unsigned char* st = smem + lay.stage0 + s * lay.stage_bytes;
+      char* stage_slab = reinterpret_cast<char*>(st + lay.slab);
+      const int m0 = ch.m0(j), m1 = ch.m1(j);
+      const Beam<T> b{stage_slab, stage_slab,
+                      reinterpret_cast<const T*>(st + lay.q),
+                      reinterpret_cast<const T*>(st + lay.kvn),
+                      patch ? reinterpret_cast<const T*>(st + lay.kg)
+                            : nullptr,
+                      patch ? slot : -1, m0};
+      // the score pass stores its rows (the V pass stores nothing); the
+      // chunk holding slot s is patched first in the quantize mode
+      const bool store = write_back && ch.scores(j);
+      const bool patch_here = patch && slot >= m0 && slot < m1;
+      auto store_rows = [&]() {
+        char* to = cache_dst + (lbn + beam) * slab + m0 * row_bytes;
+        const uint32_t cb = static_cast<uint32_t>((m1 - m0) * row_bytes);
+        if (bulk) {
+          bulk_store(to, stage_slab, cb);
+        } else {
+          for (long long k = tid; k < cb; k += kConsumers)
+            to[k] = stage_slab[k];
+        }
+      };
+      if (store && bulk && !patch_here && tid == 0) {
+        // the rows as loaded are the destination's: store them at once
+        fence_proxy_async();
+        store_rows();
+      }
+      if (ch.scores(j)) {
+        if (ch.first(j)) core.prologue(b, tid);
+        core.score_rows(b, tid, m1, ch.last(j), b.kg,
+                        store && patch_here
+                            ? reinterpret_cast<int8_t*>(
+                                  stage_slab + (slot - m0) * row_bytes)
+                            : nullptr);
+        // slot s is patched and fenced (score_rows ends on a consumer
+        // barrier)
+        if (store && ((patch_here && bulk && tid == 0) || !bulk)) store_rows();
+        if (ch.last(j)) core.softmax(tid);
+      }
+      if (ch.values(j))
+        core.values(b, tid, m1, ch.first(j), ch.last(j), attn + beam * F);
+      if (store && bulk && tid == 0) bulk_wait_read();
+      release(&empty[s], lane);
     }
-    core.scores(b, tid, b.kg,
-                write_back && patch
-                    ? reinterpret_cast<int8_t*>(stage_slab + slot * row_bytes)
-                    : nullptr);
-    // slot s is patched and fenced (scores ends on a consumer barrier)
-    if (write_back && patch && bulk && tid == 0)
-      bulk_store(to, stage_slab, static_cast<uint32_t>(slab));
-    if (write_back && !bulk)
-      for (long long j = tid; j < slab; j += kConsumers) to[j] = stage_slab[j];
-    core.values(b, tid, attn + beam * F);
-    if (write_back && bulk && tid == 0) bulk_wait_read();
-    release(&empty[s], lane);
   }
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 template <typename T, int KIND, bool KVG_Q8>
@@ -157,28 +181,29 @@ cudaError_t launch(const void* q, const void* kv_new, const void* kvg,
                    const void* cache_src, void* cache_dst, const void* src,
                    const void* bias_hist, const void* bias_new, void* attn,
                    long long B, long long N, int L, int Mc, int F, int H,
-                   int RW, int layer, int t, int write_back, long long stages,
-                   long long smem, cudaStream_t stream) {
+                   int RW, int layer, int t, int write_back, long long mcs,
+                   long long stages, long long smem, cudaStream_t stream) {
   constexpr bool OVR_EXACT = KIND != 0 && !KVG_Q8;
   const long long row_bytes =
       KIND == 0 ? static_cast<long long>(RW) * sizeof(T) : RW;
   const bool vec = (F / H) % 16 == 0;
-  const Layout lay = make_layout(Mc, F, H, row_bytes, sizeof(T), OVR_EXACT,
-                                 vec, chunk_cols<T, KIND>());
-  // the plan of ops/staging.py must be this layout's
-  if (stages < 1 || stages > kMaxStages || smem > kSmemLimit ||
-      lay.stage0 + stages * lay.stage_bytes != smem)
-    return cudaErrorInvalidValue;
-  // bulk copies: 16-byte sizes (the slot insert splits the slab at row
-  // boundaries) and addresses
+  if (mcs < 1 || mcs > Mc) return cudaErrorInvalidValue;
+  const Layout lay = make_layout(Mc, static_cast<int>(mcs), F, H, row_bytes,
+                                 false, sizeof(T), true, OVR_EXACT, vec,
+                                 chunk_cols<T, KIND>());
+  cudaError_t err = check_plan(lay, stages, smem);
+  if (err != cudaSuccess) return err;
+  // bulk copies: 16-byte sizes (the slot insert and the chunks cut the
+  // slab at row boundaries) and addresses
   const int bulk = row_bytes % 16 == 0 &&
                    (static_cast<long long>(F) * sizeof(T)) % 16 == 0 &&
                    aligned16(q) && aligned16(kv_new) && aligned16(kvg) &&
                    aligned16(cache_src) && aligned16(cache_dst);
-  auto kernel = step_attend_reorder_kernel<T, KIND, KVG_Q8>;
+  auto kernel = mcs < Mc ? step_attend_reorder_kernel<T, KIND, KVG_Q8, true>
+                         : step_attend_reorder_kernel<T, KIND, KVG_Q8, false>;
   int resident;
-  cudaError_t err = resident_blocks(reinterpret_cast<const void*>(kernel),
-                                    static_cast<int>(smem), &resident);
+  err = resident_blocks(reinterpret_cast<const void*>(kernel),
+                        static_cast<int>(smem), &resident);
   if (err != cudaSuccess) return err;
   const long long BN = B * N;
   const long long grid = BN < resident ? BN : resident;
@@ -188,8 +213,8 @@ cudaError_t launch(const void* q, const void* kv_new, const void* kvg,
       static_cast<char*>(cache_dst), static_cast<const int*>(src),
       static_cast<const float*>(bias_hist),
       static_cast<const float*>(bias_new), static_cast<T*>(attn), int(N), BN,
-      L, Mc, F, H, RW, layer, t, write_back, lay, static_cast<int>(stages),
-      vec, bulk);
+      L, Mc, F, H, RW, layer, t, write_back, static_cast<int>(mcs), lay,
+      static_cast<int>(stages), vec, bulk);
   return cudaGetLastError();
 }
 
@@ -197,15 +222,17 @@ cudaError_t launch(const void* q, const void* kv_new, const void* kvg,
 
 // kind: 0 exact, 1 int8, 2 int4; kvg_q8: kvg holds int8 cache rows (kind
 // 1 only); is_f32: q/kv_new/attn (and exact rows and exact kvg) are
-// float32, else bfloat16. cache_dst must not alias cache_src. stages and
-// smem: the launch plan of ripor_tpu_torch/ops/staging.py.
+// float32, else bfloat16. cache_dst must not alias cache_src. mcs (slots a
+// stage holds), stages and smem: the launch plan of
+// ripor_tpu_torch/ops/staging.py.
 extern "C" int step_attend_reorder(
     const void* q, const void* kv_new, const void* kvg, const void* cache_src,
     void* cache_dst, const void* src, const void* bias_hist,
     const void* bias_new, void* attn, long long B, long long N, long long L,
     long long Mc, long long F, long long H, long long RW, long long layer,
     long long t, long long write_back, long long kind, long long kvg_q8,
-    long long is_f32, long long stages, long long smem, void* stream) {
+    long long is_f32, long long mcs, long long stages, long long smem,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (B * N == 0) return cudaSuccess;
@@ -213,7 +240,7 @@ extern "C" int step_attend_reorder(
   err = launch<T, K, Q>(q, kv_new, kvg, cache_src, cache_dst, src,          \
                         bias_hist, bias_new, attn, B, N, int(L), int(Mc),   \
                         int(F), int(H), int(RW), int(layer), int(t),        \
-                        int(write_back), stages, smem, s)
+                        int(write_back), mcs, stages, smem, s)
   if (is_f32) {
     if (kind == 0) RIPOR_LAUNCH(float, 0, false);
     else if (kind == 1 && kvg_q8) RIPOR_LAUNCH(float, 1, true);

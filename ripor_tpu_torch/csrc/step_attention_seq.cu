@@ -20,7 +20,9 @@
 // Design: attend_staged.cuh. Persistent blocks; the producer warp stages
 // each beam's layer slab cache[b, n, l] (Mc*RW contiguous bytes), q and
 // kv_new with bulk async copies into a ring of stages; eight consumer
-// warps run the attention from shared memory.
+// warps run the attention from shared memory. A slab larger than one stage
+// (t5-3b widths in bf16 or int8 rows, t5-large in f32) streams through the
+// ring in slot chunks, twice: once for the scores, once for the V sums.
 #include <cuda_bf16.h>
 #include <stdint.h>
 
@@ -32,9 +34,10 @@ using namespace ripor::staged;
 
 namespace {
 
-// KIND: 0 exact rows (dtype T, RW = 2F), 1 int8 rows, 2 packed int4 rows
-template <typename T, int KIND>
-__global__ void __launch_bounds__(kThreads, 3)
+// KIND: 0 exact rows (dtype T, RW = 2F), 1 int8 rows, 2 packed int4 rows;
+// CHUNKED: the slab streams in slot chunks of mcs slots
+template <typename T, int KIND, bool CHUNKED>
+__global__ void __launch_bounds__(kThreads, CHUNKED ? 1 : kMinBlocks)
 step_attention_seq_kernel(const T* __restrict__ q,
                           const T* __restrict__ kv_new,
                           const char* __restrict__ cache,
@@ -42,8 +45,8 @@ step_attention_seq_kernel(const T* __restrict__ q,
                           const float* __restrict__ bias_new,
                           T* __restrict__ attn, int8_t* __restrict__ kvq,
                           long long BN, int L, int Mc, int F, int H, int RW,
-                          int layer, int emit, Layout lay, int stages,
-                          int vec, int bulk) {
+                          int layer, int emit, int mcs, Layout lay,
+                          int stages, int vec, int bulk) {
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + kMaxStages;
@@ -51,6 +54,7 @@ step_attention_seq_kernel(const T* __restrict__ q,
   const long long row_bytes =
       KIND == 0 ? static_cast<long long>(RW) * sizeof(T) : RW;
   const long long slab = Mc * row_bytes;
+  const Chunks<CHUNKED> ch(Mc, mcs);
 
   init_barriers(full, empty, stages);
   stage_biases(reinterpret_cast<float*>(smem + lay.bias), bias_hist, bias_new,
@@ -58,23 +62,23 @@ step_attention_seq_kernel(const T* __restrict__ q,
   __syncthreads();
 
   if (tid >= kConsumers) {  // the producer warp
-    long long i = 0;
-    for (long long beam = blockIdx.x; beam < BN; beam += gridDim.x, ++i) {
-      const int s = static_cast<int>(i % stages);
-      if (i >= stages) mbar_wait(&empty[s], ((i / stages) - 1) & 1);
-      unsigned char* st = smem + lay.stage0 + s * lay.stage_bytes;
-      const long long qb = static_cast<long long>(F) * sizeof(T);
-      if (bulk && lane == 0)
-        mbar_arrive_tx(&full[s], static_cast<uint32_t>(slab + 3 * qb));
-      stage_in(st + lay.slab, cache + (beam * L + layer) * slab, slab,
-               &full[s], bulk, lane);
-      stage_in(st + lay.q, q + beam * F, qb, &full[s], bulk, lane);
-      stage_in(st + lay.kvn, kv_new + beam * 2 * F, 2 * qb, &full[s], bulk,
-               lane);
-      if (!bulk) {
-        __threadfence_block();
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&full[s]);
+    int i = 0;
+    for (long long beam = blockIdx.x; beam < BN; beam += gridDim.x) {
+      for (int j = 0; j < ch.loads(); ++j, ++i) {
+        const int s = i % stages;
+        if (i >= stages) mbar_wait(&empty[s], ((i / stages) - 1) & 1);
+        unsigned char* st = smem + lay.stage0 + s * lay.stage_bytes;
+        const long long qb = static_cast<long long>(F) * sizeof(T);
+        const long long m0 = ch.m0(j), cb = (ch.m1(j) - m0) * row_bytes;
+        if (bulk && lane == 0)
+          mbar_arrive_tx(&full[s], static_cast<uint32_t>(cb + 3 * qb));
+        stage_in(st + lay.slab,
+                 cache + (beam * L + layer) * slab + m0 * row_bytes, cb,
+                 &full[s], bulk, lane);
+        stage_in(st + lay.q, q + beam * F, qb, &full[s], bulk, lane);
+        stage_in(st + lay.kvn, kv_new + beam * 2 * F, 2 * qb, &full[s], bulk,
+                 lane);
+        stage_done(&full[s], bulk, lane);
       }
     }
     return;
@@ -82,17 +86,20 @@ step_attention_seq_kernel(const T* __restrict__ q,
 
   const Core<T, KIND> core{lay, smem, Dims{Mc, F, H, F / H, row_bytes,
                                            vec != 0}};
-  long long i = 0;
-  for (long long beam = blockIdx.x; beam < BN; beam += gridDim.x, ++i) {
-    const int s = static_cast<int>(i % stages);
-    mbar_wait(&full[s], (i / stages) & 1);
-    const unsigned char* st = smem + lay.stage0 + s * lay.stage_bytes;
-    const Beam<T> b{reinterpret_cast<const char*>(st + lay.slab),
-                    reinterpret_cast<const T*>(st + lay.q),
-                    reinterpret_cast<const T*>(st + lay.kvn), nullptr, -1};
-    core.scores(b, tid, b.kvn, KIND != 0 && emit ? kvq + beam * RW : nullptr);
-    core.values(b, tid, attn + beam * F);
-    release(&empty[s], lane);
+  int i = 0;
+  for (long long beam = blockIdx.x; beam < BN; beam += gridDim.x) {
+    for (int j = 0; j < ch.loads(); ++j, ++i) {
+      const int s = i % stages;
+      mbar_wait(&full[s], (i / stages) & 1);
+      const unsigned char* st = smem + lay.stage0 + s * lay.stage_bytes;
+      const char* rows = reinterpret_cast<const char*>(st + lay.slab);
+      const Beam<T> b{rows, rows, reinterpret_cast<const T*>(st + lay.q),
+                      reinterpret_cast<const T*>(st + lay.kvn), nullptr, -1,
+                      ch.m0(j)};
+      core.run(b, ch, j, tid, b.kvn,
+               KIND != 0 && emit ? kvq + beam * RW : nullptr, attn + beam * F);
+      release(&empty[s], lane);
+    }
   }
 }
 
@@ -138,48 +145,48 @@ __global__ void staged_products_kernel(const uint16_t* __restrict__ q,
   }
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 template <typename T, int KIND>
 cudaError_t launch(const void* q, const void* kv_new, const void* cache,
                    const void* bias_hist, const void* bias_new, void* attn,
                    void* kvq, long long BN, int L, int Mc, int F, int H,
-                   int RW, int layer, int emit, long long stages,
-                   long long smem, cudaStream_t stream) {
+                   int RW, int layer, int emit, long long mcs,
+                   long long stages, long long smem, cudaStream_t stream) {
   const long long row_bytes =
       KIND == 0 ? static_cast<long long>(RW) * sizeof(T) : RW;
   const bool vec = (F / H) % 16 == 0;
-  const Layout lay = make_layout(Mc, F, H, row_bytes, sizeof(T), false, vec,
+  if (mcs < 1 || mcs > Mc) return cudaErrorInvalidValue;
+  const Layout lay = make_layout(Mc, static_cast<int>(mcs), F, H, row_bytes,
+                                 false, sizeof(T), true, false, vec,
                                  chunk_cols<T, KIND>());
-  // the plan of ops/staging.py must be this layout's
-  if (stages < 1 || stages > kMaxStages || smem > kSmemLimit ||
-      lay.stage0 + stages * lay.stage_bytes != smem)
-    return cudaErrorInvalidValue;
-  const int bulk = (Mc * row_bytes) % 16 == 0 &&
+  cudaError_t err = check_plan(lay, stages, smem);
+  if (err != cudaSuccess) return err;
+  // bulk copies: 16-byte sizes (a whole slab, or rows that chunks cut at)
+  // and addresses
+  const int bulk = (mcs < Mc ? row_bytes : Mc * row_bytes) % 16 == 0 &&
                    (static_cast<long long>(F) * sizeof(T)) % 16 == 0 &&
                    aligned16(q) && aligned16(kv_new) && aligned16(cache);
-  auto kernel = step_attention_seq_kernel<T, KIND>;
+  auto kernel = mcs < Mc ? step_attention_seq_kernel<T, KIND, true>
+                         : step_attention_seq_kernel<T, KIND, false>;
   int resident;
-  cudaError_t err = resident_blocks(reinterpret_cast<const void*>(kernel),
-                                    static_cast<int>(smem), &resident);
+  err = resident_blocks(reinterpret_cast<const void*>(kernel),
+                        static_cast<int>(smem), &resident);
   if (err != cudaSuccess) return err;
   const long long grid = BN < resident ? BN : resident;
   kernel<<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kv_new),
       static_cast<const char*>(cache), static_cast<const float*>(bias_hist),
       static_cast<const float*>(bias_new), static_cast<T*>(attn),
-      static_cast<int8_t*>(kvq), BN, L, Mc, F, H, RW, layer, emit, lay,
-      static_cast<int>(stages), vec, bulk);
+      static_cast<int8_t*>(kvq), BN, L, Mc, F, H, RW, layer, emit,
+      static_cast<int>(mcs), lay, static_cast<int>(stages), vec, bulk);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // kind: 0 exact, 1 int8, 2 int4; is_f32: q/kv_new/attn (and exact rows)
-// are float32, else bfloat16. kvq may be null when emit == 0. stages and
-// smem: the launch plan of ripor_tpu_torch/ops/staging.py.
+// are float32, else bfloat16. kvq may be null when emit == 0. mcs (slots
+// a stage holds), stages and smem: the launch plan of
+// ripor_tpu_torch/ops/staging.py.
 extern "C" int step_attention_seq(const void* q, const void* kv_new,
                                   const void* cache, const void* bias_hist,
                                   const void* bias_new, void* attn, void* kvq,
@@ -187,15 +194,15 @@ extern "C" int step_attention_seq(const void* q, const void* kv_new,
                                   long long F, long long H, long long RW,
                                   long long layer, long long kind,
                                   long long is_f32, long long emit,
-                                  long long stages, long long smem,
-                                  void* stream) {
+                                  long long mcs, long long stages,
+                                  long long smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (BN == 0) return cudaSuccess;
 #define RIPOR_LAUNCH(T, K)                                                 \
   err = launch<T, K>(q, kv_new, cache, bias_hist, bias_new, attn, kvq, BN, \
                      int(L), int(Mc), int(F), int(H), int(RW), int(layer), \
-                     int(emit), stages, smem, s)
+                     int(emit), mcs, stages, smem, s)
   if (is_f32) {
     if (kind == 0) RIPOR_LAUNCH(float, 0);
     else if (kind == 1) RIPOR_LAUNCH(float, 1);

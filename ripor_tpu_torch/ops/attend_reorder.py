@@ -4,8 +4,7 @@ the step-attention kernels share, and K4 ``step_attend_reorder``.
 Port of ripor_tpu/ops/attend_reorder.py. The row codec (``_quantize_rows``,
 ``_quantize_rows_int4``, ``_unpack_int4``, ``quantize_rows_xla[_int4]``) has
 its device twin in csrc/row_codec.cuh; ``attend_plain`` is the plain
-version of the attention K2 and K4 share (csrc/attend_staged.cuh) and of
-K5's (csrc/attend_core.cuh); and
+version of the attention K2, K4 and K5 share (csrc/attend_staged.cuh); and
 ``step_attend_reorder`` (csrc/step_attend_reorder.cu) is the deferred
 decode's per-layer kernel: beam reorder of one layer of the K|V-merged
 cache [L, B, N, Mc, RW] with step t-1's row inserted at slot t-1, fused
@@ -151,8 +150,8 @@ def decode_rows(rows: torch.Tensor, F: int, num_heads: int,
 def attend_plain(q, k_new, v_new, k_hist, v_hist, bias_hist, bias_new,
                  num_heads: int, dot_dt, ek=None, ev=None):
     """One-query attention per beam over Mc slots plus position t's own
-    k/v, with the reference math's rounding points (attend_staged.cuh and
-    attend_core.cuh are its device twins): k·q products are formed in
+    k/v, with the reference math's rounding points (attend_staged.cuh is
+    its device twin): k·q products are formed in
     ``dot_dt`` before the f32 per-head sums; probabilities (times the V
     scale ``ev`` for quantized rows) are cast to ``dot_dt`` before they
     multiply V, and that product is formed in ``dot_dt`` too; sums and
@@ -314,14 +313,14 @@ def step_attend_reorder(q: torch.Tensor, kv_new: torch.Tensor,
     plan = stage_plan(quant, cache_src.element_size(), q.element_size(), Mc,
                       F, num_heads, exact_kvg=quant is not None and not kvg_q8)
     attn = torch.empty_like(q)
-    fn = kernel_fn("step_attend_reorder", "step_attend_reorder", 9, 15)
+    fn = kernel_fn("step_attend_reorder", "step_attend_reorder", 9, 16)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), kv_new.data_ptr(), kvg.data_ptr(),
                 cache_src.data_ptr(), cache_dst.data_ptr(), src.data_ptr(),
                 bias_hist.data_ptr(), bias_new.data_ptr(), attn.data_ptr(),
                 B, N, L, Mc, F, num_heads, RW, layer, t, int(write_back),
                 KIND_CODE[quant], int(kvg_q8), int(q.dtype == torch.float32),
-                plan.stages, plan.smem_bytes,
+                plan.chunk_slots, plan.stages, plan.smem_bytes,
                 torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "step_attend_reorder")
     return attn, cache_dst

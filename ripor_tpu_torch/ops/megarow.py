@@ -182,14 +182,14 @@ def step_attention_seq(q: torch.Tensor, kv_new: torch.Tensor,
     attn = torch.empty_like(q)
     kvq = (torch.empty(B, N, RW, dtype=torch.int8, device=q.device)
            if emit_quant else None)
-    fn = kernel_fn("step_attention_seq", "step_attention_seq", 7, 12)
+    fn = kernel_fn("step_attention_seq", "step_attention_seq", 7, 13)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), kv_new.data_ptr(), cache.data_ptr(),
                 bias_hist.data_ptr(), bias_new.data_ptr(), attn.data_ptr(),
                 kvq.data_ptr() if kvq is not None else None,
                 B * N, L, Mc, F, num_heads, RW, layer, KIND_CODE[quant],
                 int(q.dtype == torch.float32), int(kvq is not None),
-                plan.stages, plan.smem_bytes,
+                plan.chunk_slots, plan.stages, plan.smem_bytes,
                 torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "step_attention_seq")
     return (attn, kvq) if emit_quant else attn

@@ -17,6 +17,9 @@ points are the reference kernel's own: exact f32 k*q products, f32
 softmax, probabilities rounded to q's dtype, f32 weighted V sum, output in
 q's dtype. CUDA kernel: csrc/step_attention.cu.
 
+Both kernels run on the staged core (csrc/attend_staged.cuh): each beam's
+K and V planes are staged in shared memory by bulk async copies, in slot
+chunks where they do not fit one stage; ops/staging.py plans the stages.
 The TPU kernels' chunk, padding and block pipeline have no counterpart
 here: they served the TPU's VMEM.
 """
@@ -27,6 +30,7 @@ import torch
 from ripor_tpu_torch.ops._build import (check_launch, device_kind,
                                         kernel_fn, require)
 from ripor_tpu_torch.ops.attend_reorder import attend_plain
+from ripor_tpu_torch.ops.staging import stage_plan
 
 
 def _check_fused(q, k_new, v_new, cache, layer, bias_hist, bias_new,
@@ -88,14 +92,16 @@ def step_attention_fused(q: torch.Tensor, k_new: torch.Tensor,
             and bias_new.dtype == torch.float32, "biases must be float32")
     require(all(x.is_contiguous() for x in tensors),
             "step_attention_fused needs contiguous tensors")
+    esz = q.element_size()
+    plan = stage_plan(None, esz, esz, Mc, F, num_heads, planes=True)
     attn = torch.empty_like(q)
-    fn = kernel_fn("step_attention_fused", "step_attention_fused", 7, 6)
+    fn = kernel_fn("step_attention_fused", "step_attention_fused", 7, 9)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
                 cache.data_ptr(), bias_hist.data_ptr(), bias_new.data_ptr(),
                 attn.data_ptr(), B * N, Mc, F, num_heads, layer,
-                int(q.dtype == torch.float32),
-                torch.cuda.current_stream().cuda_stream)
+                int(q.dtype == torch.float32), plan.chunk_slots, plan.stages,
+                plan.smem_bytes, torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "step_attention_fused")
     return attn
 
@@ -150,12 +156,15 @@ def step_attention(q: torch.Tensor, cache_k: torch.Tensor,
     require(bias.dtype == torch.float32, "bias must be float32")
     require(all(x.is_contiguous() for x in tensors),
             "step_attention needs contiguous tensors")
+    Mc, esz = cache_k.shape[2], q.element_size()
+    plan = stage_plan(None, esz, esz, Mc, F, num_heads, planes=True,
+                      new=False)
     out = torch.empty_like(q)
-    fn = kernel_fn("step_attention", "step_attention", 5, 5)
+    fn = kernel_fn("step_attention", "step_attention", 5, 8)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-                bias.data_ptr(), out.data_ptr(), B * N, cache_k.shape[2], F,
-                num_heads, int(q.dtype == torch.float32),
-                torch.cuda.current_stream().cuda_stream)
+                bias.data_ptr(), out.data_ptr(), B * N, Mc, F, num_heads,
+                int(q.dtype == torch.float32), plan.chunk_slots, plan.stages,
+                plan.smem_bytes, torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "step_attention")
     return out

@@ -390,3 +390,254 @@ def test_staged_packed_products_bitwise(quant, scale, gen):
     torch.cuda.synchronize()
     assert torch.equal(got_kq.view(torch.int16), want_kq.view(torch.int16))
     assert torch.equal(got_pv.view(torch.int16), want_pv.view(torch.int16))
+
+
+# ---------------------------------------------------------------------------
+# K5 and K8 on the staged core (attend_planes: two bulk copies of a beam's K
+# and V planes): the same edges, D of 128 (t5-3b) too, f32 in one stage,
+# t = 0, misaligned q; slabs larger than one stage (slot chunks) for all
+# four staged kernels; and exact products where bf16-rounded ones would
+# move the output.
+# ---------------------------------------------------------------------------
+
+PLANE_SHAPES = STAGED_SHAPES + [(2, 50, 16, 4, 128),   # t5-3b's D
+                                (8, 1000, 8, 32, 128)]
+
+
+def _plane_inputs(Bq, Nq, Mc, H, D, gen, dtype, L=2):
+    F = H * D
+    cache = torch.randn(L, 2, Bq, Nq, Mc, F, generator=gen, device="cuda",
+                        dtype=dtype)
+    q, k_new, v_new = (torch.randn(Bq, Nq, F, generator=gen, device="cuda",
+                                   dtype=dtype) for _ in range(3))
+    return cache, q, k_new, v_new
+
+
+def _fused_args(cache, q, k_new, v_new, t, H, gen, layer=1):
+    Mc = cache.shape[4]
+    bias_hist = torch.randn(Mc, H, generator=gen, device="cuda")
+    bias_hist[t:] = -1e30
+    bias_new = torch.randn(1, H, generator=gen, device="cuda")
+    return (q, k_new, v_new, cache, layer, bias_hist, bias_new, H)
+
+
+def _step_args(cache, q, t, H, gen, layer=1):
+    Mc = cache.shape[4]
+    bias = torch.randn(Mc, H, generator=gen, device="cuda")
+    bias[t + 1:] = -1e30
+    return (q, cache[layer, 0], cache[layer, 1], bias, H)
+
+
+def _run_both(kernel, args):
+    name = "step_attention_fused" if kernel == "K5" else "step_attention"
+    fn, plain = ((step_attention_fused, step_attention_fused_plain)
+                 if kernel == "K5" else (step_attention, step_attention_plain))
+    before = KERNEL_LAUNCHES[name]
+    a, b = fn(*args), plain(*args)
+    torch.cuda.synchronize()
+    assert KERNEL_LAUNCHES[name] == before + 1
+    return a, b
+
+
+@pytest.mark.parametrize("kernel", ["K5", "K8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Bq,Nq,Mc,H,D", PLANE_SHAPES)
+def test_staged_planes_shapes(Bq, Nq, Mc, H, D, dtype, kernel, gen):
+    cache, q, k_new, v_new = _plane_inputs(Bq, Nq, Mc, H, D, gen, dtype)
+    t = max(Mc - 1, 1) if kernel == "K5" else Mc - 1
+    args = (_fused_args(cache, q, k_new, v_new, t, H, gen) if kernel == "K5"
+            else _step_args(cache, q, t, H, gen))
+    a, b = _run_both(kernel, args)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("kernel", ["K5", "K8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t", [0, 1, 16, 31])
+def test_staged_planes_steps(t, dtype, kernel, gen):
+    """t5-base width, Mc = 32 (f32: one stage), at t = 0 (K5: position t
+    alone; K8: slot 0 alone) and later steps."""
+    from ripor_tpu_torch.ops.staging import stage_plan
+    Bq, Nq, Mc, H, D = 2, 300, 32, 12, 64
+    esz = 4 if dtype == torch.float32 else 2
+    plan = stage_plan(None, esz, esz, Mc, H * D, H, planes=True,
+                      new=kernel == "K5")
+    assert plan.chunks == 1 and plan.stages == (1 if esz == 4 else 2)
+    cache, q, k_new, v_new = _plane_inputs(Bq, Nq, Mc, H, D, gen, dtype)
+    args = (_fused_args(cache, q, k_new, v_new, t, H, gen) if kernel == "K5"
+            else _step_args(cache, q, t, H, gen))
+    a, b = _run_both(kernel, args)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("kernel", ["K5", "K8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_staged_planes_unaligned_q(kernel, dtype, gen):
+    """q (and K5's k_new, v_new) off a 16-byte boundary: plain copies, the
+    same results."""
+    Bq, Nq, Mc, H, D = 2, 100, 8, 12, 64
+    cache, q, k_new, v_new = _plane_inputs(Bq, Nq, Mc, H, D, gen, dtype)
+    buf = torch.empty(1 + 3 * q.numel(), device="cuda", dtype=dtype)
+    views = [buf[1 + i * q.numel():1 + (i + 1) * q.numel()].view_as(q)
+             for i in range(3)]
+    for v, x in zip(views, (q, k_new, v_new)):
+        v.copy_(x)
+    assert views[0].data_ptr() % 16 != 0
+    if kernel == "K5":
+        args = _fused_args(cache, *views, 5, H, gen)
+        want = step_attention_fused_plain(q, k_new, v_new, *args[3:])
+        got = step_attention_fused(*args)
+    else:
+        args = _step_args(cache, views[0], 5, H, gen)
+        want = step_attention_plain(q, *args[1:])
+        got = step_attention(*args)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# oversized slabs on a small lead: (kernel, rows, F, H, Mc); t5-3b is
+# F = 4096, H = 32; t5-large F = 1024, H = 16; the last cases take the
+# scalar path (D = 20, 24) and, for int4 rows of 168 bytes, plain copies
+OVERSIZED = [
+    ("K2", "bf16", 4096, 32, 32), ("K2", "int8", 4096, 32, 32),
+    ("K2", "f32", 1024, 16, 32), ("K2", "int4", 40, 2, 1400),
+    ("K2", "f32", 48, 2, 640),
+    ("K5", "f32", 1024, 16, 32), ("K5", "bf16", 4096, 32, 32),
+    ("K8", "f32", 1024, 16, 32), ("K8", "bf16", 4096, 32, 32),
+    ("K8", "bf16", 40, 2, 1600),
+]
+
+
+def _chunked_plan(kernel, rows, F, H, Mc, exact_kvg=False):
+    from ripor_tpu_torch.ops.staging import stage_plan
+    quant = rows if rows in ("int8", "int4") else None
+    esz = {"f32": 4, "bf16": 2}.get(rows, 1)
+    qesz = 4 if rows == "f32" else 2
+    plan = stage_plan(quant, esz, qesz, Mc, F, H, exact_kvg=exact_kvg,
+                      planes=kernel in ("K5", "K8"), new=kernel != "K8")
+    assert plan.chunks > 1
+    return plan
+
+
+@pytest.mark.parametrize("kernel,rows,F,H,Mc", OVERSIZED)
+def test_staged_oversized_chunks(kernel, rows, F, H, Mc, gen):
+    """Slabs no stage can hold stream through the ring in slot chunks, two
+    passes (scores, then V sums), and agree with the plain versions."""
+    _chunked_plan(kernel, rows, F, H, Mc)
+    Bq, Nq = 2, 50
+    dtype = torch.float32 if rows == "f32" else torch.bfloat16
+    tol = 1e-4 if rows == "f32" else 2e-2
+    if kernel == "K2":
+        quant = rows if rows in ("int8", "int4") else None
+        cache = _rows(quant, (Bq, Nq, 1, Mc), F, H, gen, dtype=dtype)
+        q, kv_new, bias_hist, bias_new = _attn_inputs(Bq, Nq, F, H, Mc,
+                                                      Mc - 3, gen, dtype)
+        args = (q, kv_new, cache, 0, bias_hist, bias_new, H, quant)
+        before = KERNEL_LAUNCHES["step_attention_seq"]
+        a, b = step_attention_seq(*args), step_attention_seq_plain(*args)
+        torch.cuda.synchronize()
+        assert KERNEL_LAUNCHES["step_attention_seq"] == before + 1
+        if quant:
+            (a, aq), (b, bq) = a, b
+            assert torch.equal(aq, bq)
+            tol = 2e-2
+    else:
+        D = F // H
+        cache, q, k_new, v_new = _plane_inputs(Bq, Nq, Mc, H, D, gen, dtype,
+                                               L=1)
+        t = Mc - 3
+        args = (_fused_args(cache, q, k_new, v_new, t, H, gen, layer=0)
+                if kernel == "K5" else _step_args(cache, q, t, H, gen,
+                                                  layer=0))
+        a, b = _run_both(kernel, args)
+    torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("write_back", [True, False])
+@pytest.mark.parametrize("slot", ["first", "chunk end", "chunk start",
+                                  "last"])
+@pytest.mark.parametrize("rows,kvg_q8,F,H", [
+    ("bf16", False, 4096, 32),     # verbatim insert of exact rows
+    ("int8", True, 4096, 32),      # verbatim insert of int8 kvg rows
+    ("int8", False, 4096, 32),     # in-kernel quantize of slot t-1
+    ("int4", False, 4096, 32),
+    ("f32", False, 1024, 16),
+])
+def test_staged_attend_reorder_oversized(rows, kvg_q8, F, H, slot,
+                                         write_back, gen):
+    """K4 in slot chunks: every chunk of the score pass is stored once,
+    slot t-1's insert lands in the chunk that holds it (at a chunk's
+    first or last slot too), the V pass stores nothing."""
+    Bq, Nq, Mc, L = 2, 40, 32, 2
+    quant = rows if rows in ("int8", "int4") else None
+    plan = _chunked_plan("K4", rows, F, H, Mc,
+                         exact_kvg=quant is not None and not kvg_q8)
+    cs = plan.chunk_slots
+    t = {"first": 1, "chunk end": cs, "chunk start": cs + 1,
+         "last": Mc}[slot]
+    dtype = torch.float32 if rows == "f32" else torch.bfloat16
+    cache = _rows(quant, (L, Bq, Nq, Mc), F, H, gen, dtype=dtype)
+    src = torch.randint(0, Nq, (Bq, Nq), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    kvg = torch.randn(Bq, Nq, L, 2 * F, generator=gen, device="cuda")
+    kvg = (quantize_rows_plain(kvg, H) if kvg_q8
+           else kvg.to(dtype)).reshape(Bq, Nq, -1)
+    q, kv_new, bias_hist, bias_new = _attn_inputs(Bq, Nq, F, H, Mc, t, gen,
+                                                  dtype)
+    before = KERNEL_LAUNCHES["step_attend_reorder"]
+    a, da = step_attend_reorder(q, kv_new, kvg, cache, torch.zeros_like(cache),
+                                src, 1, t, bias_hist, bias_new, H,
+                                write_back=write_back)
+    b, db = step_attend_reorder_plain(q, kv_new, kvg, cache,
+                                      torch.zeros_like(cache), src, 1, t,
+                                      bias_hist, bias_new, H,
+                                      write_back=write_back)
+    torch.cuda.synchronize()
+    assert KERNEL_LAUNCHES["step_attend_reorder"] == before + 1
+    assert torch.equal(da, db)
+    tol = 1e-4 if rows == "f32" else 2e-2
+    torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("kernel", ["K5", "K8"])
+def test_staged_planes_keep_exact_products(kernel, gen):
+    """K5 and K8 form k*q as exact f32 products of bf16 values, as their
+    references do. Here every k and q entry is (1 + 2^-7) times a power of
+    two: the exact product is (1 + 2^-6 + 2^-14) 2^e, a bf16-rounded one
+    (1 + 2^-6) 2^e. The biases cancel the rounded scores, so exact
+    products leave scores of 1 to 16 and rounded ones scores of 0: the
+    outputs differ by far more than the bar, and the kernels agree with
+    their plain versions."""
+    Bq, Nq, Mc, H, D = 1, 64, 8, 2, 64
+    F = H * D
+    one = 1.0 + 2.0 ** -7
+    e = torch.tensor([8.0 + m % 5 for m in range(Mc)], device="cuda")
+    k = (one * 2.0 ** e)[:, None].expand(Mc, F)
+    cache_k = k.expand(Bq, Nq, Mc, F).bfloat16().contiguous()
+    cache_v = torch.randn(Bq, Nq, Mc, F, generator=gen, device="cuda",
+                          dtype=torch.bfloat16)
+    q = torch.full((Bq, Nq, F), one, device="cuda", dtype=torch.bfloat16)
+    rounded = D * (1.0 + 2.0 ** -6) * 2.0 ** e          # exact in f32
+    bias = (-rounded)[:, None].expand(Mc, H).contiguous()
+    kq_rounded = (cache_k.float() * q.float()[:, :, None]).bfloat16()
+    if kernel == "K5":
+        cache = torch.stack([cache_k, cache_v])[None].contiguous()
+        k_new = torch.zeros_like(q)
+        v_new = torch.randn(Bq, Nq, F, generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+        bias_new = torch.zeros(1, H, device="cuda")
+        args = (q, k_new, v_new, cache, 0, bias, bias_new, H)
+        from ripor_tpu_torch.ops.attend_reorder import attend_plain
+        off = attend_plain(q, k_new, v_new, cache_k, cache_v, bias, bias_new,
+                           H, torch.bfloat16)
+    else:
+        args = (q, cache_k, cache_v, bias, H)
+        scores = kq_rounded.float().reshape(Bq, Nq, Mc, H, D).sum(-1) + bias
+        probs = torch.softmax(scores, dim=2).bfloat16().float()
+        off = (probs.repeat_interleave(D, dim=-1) * cache_v.float()).sum(2)
+    a, b = _run_both(kernel, args)
+    assert (off.float() - b.float()).abs().max().item() > 0.25
+    torch.testing.assert_close(a.float(), b.float(), rtol=2e-2, atol=2e-2)
