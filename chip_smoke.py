@@ -41,7 +41,20 @@ nonzero and no result line is printed:
      B=8 search each, after one warm-up search, with phase 4's checks and
      launch counters zeroed just before and read just after; two more
      searches for the time (median of three), and the same profile as
-     phase 5.
+     phase 5;
+  7. the main path through its entry points, at phase 4's model and
+     corpus: a workspace written by the port's own functions (save_params,
+     docid_to_smtid.json, a WordTokenizer, 16 queries); the ``retrieve``
+     CLI at beam = topk = 1000 as a subprocess and in process, its run.json
+     equal to RetrievalEngine.retrieve_batch, with queries per second and
+     the load and trie seconds; ``--nranks 2`` + ``retrieve-merge`` equal to
+     the single run; ``evaluate`` printing exactly the MRR@10 of a
+     constructed qrel; ``serve_http`` with an int4 cache answering two POST
+     /retrieve as retrieve_batch does, GET /stats, a disabled /profile
+     (403); and ffn_int8 on the megarow and deferred paths: at the JAX
+     package's bar (tests/test_beam.py:646-672) at that test's geometry,
+     and one search each at full width, beside the exact path. Counters
+     are zeroed before each part and read after it.
 
 Prints the card's name and power limit (nvidia-smi), per-phase lines, then
 a ``{"kernels": [...]}`` line and, last, the contract line
@@ -748,7 +761,7 @@ def make_world():
         "seconds": time.monotonic() - t0, "docs": N_DOCS,
         "groups": int(trie.num_groups), "trie_nodes": int(trie.num_internal)}))
     return dict(cfg=cfg, sd=sd, trie=trie, docids=docids, queries=queries,
-                tok=HashTokenizer())
+                tok=HashTokenizer(), codes=codes, words=words, device="cuda")
 
 
 def check_beams(tag, trie, scores, bcodes, state):
@@ -922,6 +935,348 @@ def other_paths(world, launches):
         torch.cuda.empty_cache()
 
 
+def run_cli(argv, tag):
+    """One call of the port's CLI in this process; echoes and returns its
+    standard output."""
+    import contextlib
+    import io
+    from ripor_tpu_torch.cli.main import main as cli_main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli_main(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"cli {tag}:", line)
+    return out
+
+
+def timing_line(out):
+    """The retrieve_timing record a `retrieve` call printed."""
+    line = next(ln for ln in out.splitlines()
+                if ln.startswith("retrieve_timing "))
+    return json.loads(line.split(" ", 1)[1])
+
+
+def check_same_run(tag, got, want):
+    """Two runs (or a run and engine results): the same qids, and per
+    query the same docids in the same order with scores within 1e-6."""
+    check(list(got) == list(want), f"{tag}: qids differ")
+    for qid in want:
+        g, w = list(got[qid]), list(want[qid])
+        check([d for d, _ in g] == [d for d, _ in w],
+              f"{tag}: {qid} docids or their order differ")
+        err = max(abs(a - b) for (_, a), (_, b) in zip(g, w))
+        check(err <= 1e-6, f"{tag}: {qid} scores differ by {err}")
+
+
+def read_run(path):
+    with open(path) as f:
+        return {q: list(d.items()) for q, d in json.load(f).items()}
+
+
+def mrr_qrel(results, qids):
+    """Phase 7's qrel: for query q, the doc at rank r_q = 1 + (q mod 10)
+    of ``results``, moved to the nearest rank (at most 10) whose score no
+    other result shares, so trec's docid tie-break cannot move it. Returns
+    (qrel, ranks)."""
+    qrel, ranks = {}, []
+    for q, (qid, res) in enumerate(zip(qids, results)):
+        scores = [v for _, v in res]
+
+        def untied(r):
+            return sum(v == scores[r - 1] for v in scores) == 1
+        want = 1 + q % 10
+        r = min((r for r in range(1, 11) if untied(r)),
+                key=lambda r: (abs(r - want), r))
+        qrel[qid] = {res[r - 1][0]: 1}
+        ranks.append(r)
+    return qrel, ranks
+
+
+def cli_phase(world, launches):
+    """Phase 7: the main path through its entry points. A workspace written
+    by the port's own functions (phase 4's model saved by save_params, its
+    corpus as docid_to_smtid.json, a WordTokenizer, 16 queries in raw.tsv);
+    ``retrieve`` at beam = topk = 1000 as a subprocess and in process
+    (run.json equal to RetrievalEngine.retrieve_batch), ``--nranks 2`` and
+    ``retrieve-merge`` (equal to the single run), ``evaluate`` (MRR@10
+    equal to the constructed value), ``serve_http`` with an int4 cache (two
+    POST /retrieve of 8 queries equal to retrieve_batch, GET /stats, a
+    disabled /profile), and ffn_int8 (ffn_int8_check). Counters are
+    zeroed before each part and read after it; the kernels of its path
+    must have launched. Adds the in-process retrieve's and the ffn_int8
+    searches' launches to ``launches``."""
+    import http.client
+    import os
+    import tempfile
+
+    import torch
+    from ripor_tpu_torch.data.datasets import save_docid_to_smtid
+    from ripor_tpu_torch.data.tokenizer import WordTokenizer
+    from ripor_tpu_torch.ops import KERNEL_LAUNCHES
+    from ripor_tpu_torch.pipeline import load_tokenizer
+    from ripor_tpu_torch.serve import RetrievalEngine, ServeConfig, serve_http
+    from ripor_tpu_torch.train import load_params, save_params
+
+    cfg, trie, docids = world["cfg"], world["trie"], world["docids"]
+    dev = world["device"]
+    texts = world["queries"][:16]
+    qids = [f"q{i}" for i in range(16)]
+
+    def zero():
+        for k in KERNEL_LAUNCHES:
+            KERNEL_LAUNCHES[k] = 0
+
+    def need(tag, kernels):
+        counts = dict(KERNEL_LAUNCHES)
+        for k in kernels:
+            check(counts[k] > 0, f"{tag}: kernel {k} never launched")
+        return counts
+
+    with tempfile.TemporaryDirectory(prefix="ripor_ws_") as tmp:
+        ws = os.path.join(tmp, "ws")
+        ckpt = os.path.join(ws, "checkpoints", "final")
+        t0 = time.monotonic()
+        save_params(ckpt, world["sd"], cfg)
+        os.makedirs(os.path.join(tmp, "queries"))
+        with open(os.path.join(tmp, "queries", "raw.tsv"), "w") as f:
+            f.writelines(f"{q}\t{t}\n" for q, t in zip(qids, texts))
+        WordTokenizer.train(world["words"]).save(
+            os.path.join(ws, "tokenizer.json"))
+        save_docid_to_smtid(os.path.join(ws, "docid_to_smtid.json"), docids,
+                            world["codes"])
+        print("cli_workspace", json.dumps({
+            "seconds": time.monotonic() - t0, "queries": len(qids),
+            "params_pt_bytes": os.path.getsize(
+                os.path.join(ckpt, "params.pt"))}))
+        base = ["retrieve", "--workspace", ws,
+                "--queries", os.path.join(tmp, "queries"),
+                "--beam", "1000", "--topk", "1000", "--device", dev]
+        torch.cuda.empty_cache()
+
+        # the CLI as a user runs it: a process of its own (it builds the
+        # trie and saves trie.npz; the kernels come from the build cache)
+        t0 = time.monotonic()
+        sub = subprocess.run(
+            [sys.executable, "-m", "ripor_tpu_torch.cli.main", *base,
+             "--run-name", "run_subprocess.json"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+        for line in sub.stdout.splitlines():
+            print("cli subprocess:", line)
+        check(sub.returncode == 0, f"retrieve subprocess exit "
+              f"{sub.returncode}: {sub.stderr[-2000:]}")
+        sub_timing = timing_line(sub.stdout)
+        sub_timing["process_s"] = time.monotonic() - t0
+
+        zero()
+        out = run_cli(base, "in process")
+        counts = need("cli retrieve", MEGAROW_KERNELS)
+        for k in MEGAROW_KERNELS:
+            launches[k] = counts[k]
+        timing = timing_line(out)
+        run = read_run(os.path.join(ws, "run.json"))
+        check(list(run) == qids and all(len(r) == 1000
+                                        for r in run.values()),
+              "cli run.json: not 16 queries of 1000 docs")
+        check_results("cli run.json", list(run.values()))
+        check_same_run("cli subprocess vs in process",
+                       read_run(os.path.join(ws, "run_subprocess.json")),
+                       run)
+        print("cli_retrieve", json.dumps({
+            "batch": 8, "beam": 1000, "topk": 1000, "in_process": timing,
+            "subprocess": sub_timing, "launches": {
+                k: counts[k] for k in MEGAROW_KERNELS}}))
+
+        tok = load_tokenizer(os.path.join(ws, "tokenizer.json"))
+        params = load_params(ckpt)
+        eng = RetrievalEngine(cfg, params, tok, trie, docids,
+                              ServeConfig(num_beams=1000, topk=1000,
+                                          batch_sizes=(8,)), device=dev)
+        want = eng.retrieve_batch(texts)
+        del eng
+        torch.cuda.empty_cache()
+        check_same_run("cli run.json vs RetrievalEngine", run,
+                       dict(zip(qids, want)))
+
+        for rank in (0, 1):
+            run_cli(base + ["--rank", str(rank), "--nranks", "2",
+                            "--run-name", "run_shard.json"], f"rank {rank}")
+        run_cli(["retrieve-merge", "--workspace", ws, "--nranks", "2",
+                 "--run-name", "run_shard.json"], "merge")
+        merged = read_run(os.path.join(ws, "run_shard.json"))
+        check_same_run("retrieve-merge vs single run",
+                       {q: merged[q] for q in qids}, run)
+
+        qrel, ranks = mrr_qrel(want, qids)
+        qrel_path = os.path.join(tmp, "qrel.json")
+        with open(qrel_path, "w") as f:
+            json.dump(qrel, f)
+        got = json.loads(run_cli(["evaluate", "--qrel", qrel_path, "--run",
+                                  os.path.join(ws, "run.json"),
+                                  "--metric", "mrr_10"], "evaluate"))
+        expect = sum(1.0 / r for r in ranks) / len(ranks)
+        check(got == {"mrr_10": expect},
+              f"evaluate: {got}, constructed MRR@10 {expect}")
+        print("cli_evaluate", json.dumps({"ranks": ranks, "mrr_10": expect}))
+
+        # serve with --kv-quant int4 settings
+        eng = RetrievalEngine(cfg, params, tok, trie, docids,
+                              ServeConfig(num_beams=1000, topk=1000,
+                                          batch_sizes=(8,),
+                                          kv_cache_quant="int4",
+                                          ckpt_dir=ckpt), device=dev)
+        want4 = eng.retrieve_batch(texts)
+        zero()
+        server = serve_http(eng, port=0, block=False)
+        host, port = server.server_address
+        try:
+            conn = http.client.HTTPConnection(host, port, timeout=600)
+            got4 = []
+            for part in (texts[:8], texts[8:]):
+                conn.request("POST", "/retrieve",
+                             body=json.dumps({"queries": part}),
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                body = json.loads(resp.read())
+                check(resp.status == 200, f"POST /retrieve: {resp.status}")
+                got4 += [[tuple(x) for x in r] for r in body["results"]]
+            conn.request("GET", "/stats")
+            resp = conn.getresponse()
+            stats = json.loads(resp.read())
+            check(resp.status == 200 and stats["served"] >= 32,
+                  f"GET /stats: {resp.status} {stats}")
+            conn.request("GET", "/profile?ms=10")
+            resp = conn.getresponse()
+            resp.read()
+            check(resp.status == 403, f"disabled /profile: {resp.status}")
+        finally:
+            server.shutdown()
+            server.server_close()
+            eng.stop()
+        counts = need("serve", MEGAROW_KERNELS)
+        check_results("serve int4", got4)
+        check_same_run("HTTP answers vs retrieve_batch",
+                       dict(zip(qids, got4)), dict(zip(qids, want4)))
+        print("cli_serve", json.dumps({
+            "cache": "int4", "requests": 2, "queries": 16,
+            "stats": {k: stats[k] for k in ("served", "qps", "p50_s",
+                                            "batch_hist")},
+            "launches": {k: counts[k] for k in MEGAROW_KERNELS}}))
+        del eng, params
+        torch.cuda.empty_cache()
+
+    ffn_int8_check(world, launches)
+
+
+def beam_agreement(a, b):
+    """How far search b moves from search a (scores, codes, states as
+    numpy): per query, whether the top beams agree and how many codes of
+    the smaller live set the other lacks; the largest |score| change by
+    rank and its ratio to rtol 0.05 / atol 0.25."""
+    from ripor_tpu_torch.decode.beam import NEG_INF
+    (s0, c0, _), (s1, c1, _) = a, b
+    live = (s0 > NEG_INF / 2) & (s1 > NEG_INF / 2)
+    err = np.abs(s1[live] - s0[live])
+    diff = []
+    for q in range(len(s0)):
+        set0 = {tuple(r) for r, v in zip(c0[q], s0[q]) if v > NEG_INF / 2}
+        set1 = {tuple(r) for r, v in zip(c1[q], s1[q]) if v > NEG_INF / 2}
+        diff.append(min(len(set0), len(set1)) - len(set0 & set1))
+    return {"top_beam_equal": [bool(np.array_equal(c0[q, 0], c1[q, 0]))
+                               for q in range(len(s0))],
+            "code_set_diff": diff, "max_abs_score_diff": float(err.max()),
+            "max_diff_over_bar": float(
+                (err / (0.25 + 0.05 * np.abs(s0[live]))).max())}
+
+
+def ffn_int8_check(world, launches):
+    """Phase 7, ffn_int8 on the card. (a) At tests/test_beam.py:646-672's
+    geometry (ripor_small(M=6, K=8), 40 docs, 5 beams, f32, 3 cache
+    segments): the megarow and deferred ffn_int8 searches against the
+    exact non-deferred search at that test's bar: top beam equal, live
+    scores within rtol 0.05 / atol 0.25, code sets differing by at most
+    one. (b) At full width (phase 4's model, B=8, beam 1000, bf16): one
+    ffn_int8 search on each path, every beam live on a trie leaf and its
+    path's kernels launched (counters zeroed just before, read just
+    after), with how far it moves from the exact megarow search beside
+    how far two exact paths (megarow, write-then-attend) move from each
+    other. (a)'s bar is not held at (b): at beam 1000 in bf16 two exact
+    paths already differ by more."""
+    import torch
+    from ripor_tpu_torch.data.tokenizer import tokenize_queries
+    from ripor_tpu_torch.decode.beam import make_beam_search_fn
+    from ripor_tpu_torch.models import (RiporModel, init_params,
+                                        ripor_small)
+    from ripor_tpu_torch.ops import KERNEL_LAUNCHES
+    from ripor_tpu_torch.trie import (build_trie, succinct_tables,
+                                      tables_to_torch)
+
+    dev = world["device"]
+    paths = (("megarow", dict(megarow=True), MEGAROW_KERNELS),
+             ("deferred", dict(megarow=False),
+              ("step_attend_reorder", "beam_gather_rows")))
+
+    # (a) the JAX package's bar at its geometry
+    cfg = ripor_small(M=6, K=8)
+    model = RiporModel(cfg, device=dev)
+    model.load_state_dict(init_params(
+        cfg, torch.Generator().manual_seed(SEED), device="cpu"))
+    rng = np.random.default_rng(SEED)
+    tables = tables_to_torch(succinct_tables(
+        build_trie(rng.integers(0, 8, (40, 6)), 8)), dev)
+    ids = rng.integers(1, 100, (2, 10)).astype(np.int32)
+
+    def small(**kw):
+        fn = make_beam_search_fn(cfg, 5, dtype=torch.float32, device=dev,
+                                 cache_segments=3, **kw)
+        return [a.cpu().numpy() for a in fn(model, ids, np.ones_like(ids),
+                                            tables)]
+
+    exact = small(deferred=False)
+    for tag, kw, _ in paths:
+        rec = beam_agreement(exact, small(ffn_int8=True, **kw))
+        print("ffn_int8_bar", json.dumps({"path": tag, "geometry":
+                                          "ripor_small M=6 K=8, 5 beams, "
+                                          "f32", **rec}))
+        check(all(rec["top_beam_equal"]), f"ffn_int8 {tag}: top beam")
+        check(rec["max_diff_over_bar"] <= 1.0,
+              f"ffn_int8 {tag}: scores beyond rtol 0.05 / atol 0.25")
+        check(max(rec["code_set_diff"]) <= 1,
+              f"ffn_int8 {tag}: code sets differ by {rec['code_set_diff']}")
+
+    # (b) full width
+    cfg = world["cfg"]
+    model = RiporModel(cfg, dtype=torch.bfloat16, device=dev)
+    model.load_state_dict(world["sd"])
+    tables = tables_to_torch(succinct_tables(world["trie"]), dev)
+    ids, mask = tokenize_queries(world["tok"], world["queries"][:B], 64)
+
+    def search(**kw):
+        fn = make_beam_search_fn(cfg, 1000, device=dev, **kw)
+        return [a.cpu().numpy() for a in fn(model, ids, mask, tables)]
+
+    exact = search()
+    print("ffn_int8_noise_floor", json.dumps({
+        "exact megarow vs exact write-then-attend": beam_agreement(
+            exact, search(use_pallas_gather=False))}))
+    for tag, kw, kernels in paths:
+        for k in KERNEL_LAUNCHES:
+            KERNEL_LAUNCHES[k] = 0
+        got = search(ffn_int8=True, **kw)
+        counts = dict(KERNEL_LAUNCHES)
+        for k in kernels:
+            check(counts[k] > 0, f"ffn_int8 {tag}: kernel {k} never launched")
+            launches[k] = launches.get(k, 0) + counts[k]
+        check_beams(f"ffn_int8 {tag}", world["trie"], *got)
+        print("ffn_int8", json.dumps({
+            "path": tag, "batch": B, "beam": 1000,
+            "vs_exact_megarow": beam_agreement(exact, got),
+            "launches": {k: counts[k] for k in kernels}}))
+    del model
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -961,6 +1316,8 @@ def main():
     main_path(world, launches)
     phase6 = {}
     other_paths(world, phase6)
+    cli_launches = {}
+    cli_phase(world, cli_launches)
 
     # kernel: (TPU kernel it replaces, case of the reported times, path
     # whose run gives the launches)

@@ -42,11 +42,9 @@ from ripor_tpu_torch.ops.attend_reorder import quantize_rows_plain
 from ripor_tpu_torch.ops.beam_gather import (beam_gather_blocks,
                                              beam_gather_rows,
                                              beam_gather_update)
+from ripor_tpu_torch.ops.int8_ffn import quantize_ffn
 
 NEG_INF = -1e30
-
-_LATER = ("is not ported to ripor_tpu_torch yet (a later slice of the port: "
-          "ROADMAP.md Queue 1 item 5)")
 
 
 @dataclasses.dataclass
@@ -204,9 +202,11 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
     the deferred path K4 quantizes step t-1's exact rows as it inserts
     them, unless ``kvg_quant_xla`` (int8 caches only) quantizes them once
     per step before the gather; on the megarow path ``kvg_quant_xla`` is
-    subsumed by QFUSE and has no effect. ``ffn_int8=True`` raises
-    the reference's ValueErrors, else NotImplementedError (not ported
-    yet).
+    subsumed by QFUSE and has no effect. ``ffn_int8=True`` runs the
+    decode-step FFN with per-channel int8 weights (quantized once per
+    call) and per-row int8 activations (ops/int8_ffn.py), on the megarow
+    and deferred paths and for the non-gated FFN only, as the reference
+    (its ValueErrors otherwise); None means off.
 
     The reference's other TPU knobs — the RIPOR_* switches, chunk and
     layer-group picks, the ceil-8 slot rounding and the beam padding —
@@ -263,7 +263,6 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
         if cfg.t5.is_gated:
             raise ValueError("ffn_int8 supports only the non-gated T5 v1.0 "
                              "FFN")
-        raise NotImplementedError(f"ffn_int8 {_LATER}")
     # the deferred per-layer path with int8 rows quantized before the
     # gather (validated above: an int8 cache)
     kvg_q8 = bool(kvg_quant_xla) and not megarow
@@ -312,6 +311,8 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
         self_bias = model.decoder.full_self_bias(bounds[-1])
         enc_bias = torch.where(mask > 0, 0.0, NEG_INF).float()
         ctx = (cross_kv, enc_bias, self_bias)
+        # once per call, outside the step loop
+        ffn_q = quantize_ffn(model.state_dict(), L) if ffn_int8 else None
 
         beam_scores = torch.full((B, N), NEG_INF, device=dev)
         beam_scores[:, 0] = 0.0
@@ -353,12 +354,12 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
                 if megarow:
                     logits, spare, kv_new = model.decode_step_megarow(
                         tokens, cache, spare, src_prev, kvg, *ctx, t,
-                        emit_quant=quant)
+                        emit_quant=quant, ffn_q=ffn_q)
                     cache, spare = spare, cache
                 elif deferred:
                     logits, spare, kv_new = model.decode_step_deferred(
                         tokens, cache, spare, src_prev, kvg, *ctx, t,
-                        write_back=not last)
+                        write_back=not last, ffn_q=ffn_q)
                     cache, spare = spare, cache
                 elif write_attend:
                     logits, cache = model.decode_step_write_attend(

@@ -117,25 +117,27 @@ class RiporModel(nn.Module):
 
     def decode_step_megarow(self, tokens, cache_src, cache_dst, src, kvg,
                             cross_kv: CrossKV, enc_bias, self_bias, t: int,
-                            emit_quant: Optional[str] = None):
+                            emit_quant: Optional[str] = None, ffn_q=None):
         """One beam decode step over the megarow cache
         (Decoder.decode_step_megarow). tokens: [B, N] codes chosen at step
         t-1 (ignored at t == 0). Returns (logits [B, N, K] float32 for
         position t, new cache, kv_new)."""
         hidden, new_cache, kv_new = self.decoder.decode_step_megarow(
             self._step_input(tokens, t), cache_src, cache_dst, src, kvg,
-            cross_kv, enc_bias, self_bias, t, emit_quant=emit_quant)
+            cross_kv, enc_bias, self_bias, t, emit_quant=emit_quant,
+            ffn_q=ffn_q)
         return self._step_logits(hidden, t), new_cache, kv_new
 
     def decode_step_deferred(self, tokens, cache_src, cache_dst, src, kvg,
                              cross_kv: CrossKV, enc_bias, self_bias, t: int,
-                             write_back: bool = True):
+                             write_back: bool = True, ffn_q=None):
         """One beam decode step over the layer-major merged cache with the
         reorder deferred into K4 (Decoder.decode_step_deferred). Returns
         (logits, cache_dst, kv_new [B, N, L*2F])."""
         hidden, new_cache, kv_new = self.decoder.decode_step_deferred(
             self._step_input(tokens, t), cache_src, cache_dst, src, kvg,
-            cross_kv, enc_bias, self_bias, t, write_back=write_back)
+            cross_kv, enc_bias, self_bias, t, write_back=write_back,
+            ffn_q=ffn_q)
         return self._step_logits(hidden, t), new_cache, kv_new
 
     def decode_step(self, tokens, cache, cross_kv: CrossKV, enc_bias,

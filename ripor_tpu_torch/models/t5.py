@@ -31,6 +31,7 @@ from ripor_tpu_torch.models.layers import (
 )
 from ripor_tpu_torch.ops.attend_reorder import (row_width,
                                                  step_attend_reorder)
+from ripor_tpu_torch.ops.int8_ffn import ffn_int8_apply
 from ripor_tpu_torch.ops.megarow import reorder_cache_all, step_attention_seq
 from ripor_tpu_torch.ops.step_attention import (step_attention,
                                                  step_attention_fused)
@@ -83,6 +84,10 @@ def _step_cross_attention(q, enc_k, enc_v, enc_bias, dtype):
     return torch.einsum("bnhs,bshd->bnhd", probs, enc_v)
 
 
+def _layer_ffn_q(ffn_q, l: int):
+    return None if ffn_q is None else tuple(a[l] for a in ffn_q)
+
+
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: T5Config, dtype=torch.float32, device=None):
         super().__init__()
@@ -114,13 +119,18 @@ class DecoderLayer(nn.Module):
         sa = self.self_attn
         return sa.q(h), sa.k(h), sa.v(h)
 
-    def step_finish_with_attn(self, x, attn_flat, enc_k, enc_v, enc_bias):
+    def step_finish_with_attn(self, x, attn_flat, enc_k, enc_v, enc_bias,
+                              ffn_q=None):
         """Residual + output projection of the self-attention result
-        [B, N, inner], then cross-attention and FFN."""
+        [B, N, inner], then cross-attention and FFN. ``ffn_q``: optional
+        (wi_q, wi_s, wo_q, wo_s) int8 FFN weights of this layer
+        (ops/int8_ffn.py), which replace the FFN's matmuls."""
         x = x + self.self_attn.out_flat(attn_flat)
         cq = self.cross_attn.project_q(self.cross_attn_norm(x))
         attn = _step_cross_attention(cq, enc_k, enc_v, enc_bias, self.dtype)
         x = x + self.cross_attn.out(attn)
+        if ffn_q is not None:
+            return x + ffn_int8_apply(self.ffn_norm(x), *ffn_q)
         return x + self.ffn(self.ffn_norm(x))
 
 
@@ -212,7 +222,8 @@ class Decoder(nn.Module):
 
     def decode_step_megarow(self, x, cache_src, cache_dst, src, kvg,
                             cross_kv: CrossKV, enc_bias, self_bias_full,
-                            t: int, emit_quant: Optional[str] = None):
+                            t: int, emit_quant: Optional[str] = None,
+                            ffn_q=None):
         """One decode step over the megarow cache: K1 completes the pending
         beam reorder (and the slot t-1 insert) from ``cache_src`` into
         ``cache_dst``, then each layer runs K2 over its reordered rows.
@@ -222,7 +233,9 @@ class Decoder(nn.Module):
         step t-1's rows in current beam order; t: Python int.
         Returns (hidden [B, N, d], cache_dst, kv_new [B, N, L*w]) where
         kv_new stacks this step's rows per layer: exact [2F] rows, or with
-        ``emit_quant`` the cache-layout rows K2 emitted (QFUSE)."""
+        ``emit_quant`` the cache-layout rows K2 emitted (QFUSE).
+        ``ffn_q``: optional stacked int8 FFN weights (ops/int8_ffn.py
+        quantize_ffn), layer l taking index l of each."""
         bias_hist, bias_new = self._step_biases(self_bias_full, t,
                                                 cache_src.shape[3])
         cache = reorder_cache_all(kvg, cache_src, cache_dst, src, t)
@@ -237,14 +250,15 @@ class Decoder(nn.Module):
             if emit_quant:
                 attn, kvf = attn
             kvnews.append(kvf)
-            x = layer.step_finish_with_attn(x, attn, enc_k, enc_v, enc_bias)
+            x = layer.step_finish_with_attn(x, attn, enc_k, enc_v, enc_bias,
+                                            _layer_ffn_q(ffn_q, l))
         kv_new = torch.stack(kvnews, dim=2).reshape(x.shape[0], x.shape[1],
                                                     -1)
         return self.final_norm(x), cache, kv_new
 
     def decode_step_deferred(self, x, cache_src, cache_dst, src, kvg,
                              cross_kv: CrossKV, enc_bias, self_bias_full,
-                             t: int, write_back: bool = True):
+                             t: int, write_back: bool = True, ffn_q=None):
         """One decode step with the beam reorder deferred one step and
         fused, layer by layer, into K4: rows of ``cache_src`` are read
         through ``src``, slot t-1 is completed from ``kvg`` and, with
@@ -254,8 +268,8 @@ class Decoder(nn.Module):
         x: [B, N, d]; cache_src/cache_dst: [L, B, N, Mc, RW] pair
         (init_cache_merged); src: [B, N] int32; kvg: [B, N, L*2F] step
         t-1's exact K|V rows in current beam order (or, for an int8 cache,
-        [B, N, L*RW] int8 rows). Returns (hidden, cache_dst, kv_new
-        [B, N, L*2F])."""
+        [B, N, L*RW] int8 rows); ``ffn_q`` as in decode_step_megarow.
+        Returns (hidden, cache_dst, kv_new [B, N, L*2F])."""
         bias_hist, bias_new = self._step_biases(self_bias_full, t,
                                                 cache_src.shape[3])
         kvnews = []
@@ -268,7 +282,8 @@ class Decoder(nn.Module):
                                           self.cfg.num_heads,
                                           write_back=write_back)
             kvnews.append(kvf)
-            x = layer.step_finish_with_attn(x, attn, enc_k, enc_v, enc_bias)
+            x = layer.step_finish_with_attn(x, attn, enc_k, enc_v, enc_bias,
+                                            _layer_ffn_q(ffn_q, l))
         kv_new = torch.stack(kvnews, dim=2).reshape(x.shape[0], x.shape[1],
                                                     -1)
         return self.final_norm(x), cache_dst, kv_new

@@ -1,0 +1,10 @@
+from ripor_tpu_torch.pipeline.recipe import (
+    Workspace,
+    load_tokenizer,
+    stage_build_trie,
+    stage_evaluate,
+    stage_retrieve,
+)
+
+__all__ = ["Workspace", "load_tokenizer", "stage_build_trie",
+           "stage_evaluate", "stage_retrieve"]

@@ -1,0 +1,139 @@
+"""The retrieval stages of the recipe, over a workspace directory.
+
+Port of ripor_tpu/pipeline/recipe.py's ``Workspace``, ``load_tokenizer``,
+``stage_build_trie``, ``stage_retrieve`` and ``stage_evaluate``; the
+training and index-building stages wait for their slices (ROADMAP.md
+Queue 1 items 8, 10 and 11). The workspace layout is the reference's:
+
+  workspace/
+    tokenizer.json            (WordTokenizer or Unigram tokenizer)
+    docid_to_smtid.json       (reference format incl. -1 sentinel)
+    trie.npz                  (the DocIdTrie's arrays)
+    checkpoints/<phase>/      (params + config; train/checkpoint.py)
+    run.json / perf.json      (trec run and metrics)
+
+Stages are re-entrant: they skip work when their artifact already exists.
+"""
+from __future__ import annotations
+
+import json
+import time
+from pathlib import Path
+from typing import Dict, Sequence
+
+import numpy as np
+
+from ripor_tpu_torch.data.datasets import Collection
+from ripor_tpu_torch.data.tokenizer import (TextTokenizer, UnigramTokenizer,
+                                            WordTokenizer, tokenize_queries)
+from ripor_tpu_torch.decode.beam import (expand_groups_to_docids,
+                                         make_beam_search_fn)
+from ripor_tpu_torch.decode.quant_gate import ensure_quant_validated
+from ripor_tpu_torch.evaluation.metrics import evaluate_run
+from ripor_tpu_torch.models.config import RiporConfig
+from ripor_tpu_torch.trie.build import DocIdTrie, build_trie
+from ripor_tpu_torch.trie.succinct import succinct_tables, tables_to_torch
+
+
+class Workspace:
+    def __init__(self, root: str | Path):
+        self.root = Path(root)
+        self.root.mkdir(parents=True, exist_ok=True)
+
+    def path(self, name: str) -> Path:
+        return self.root / name
+
+    def has(self, name: str) -> bool:
+        return self.path(name).exists()
+
+    def log(self, msg: str) -> None:
+        print(f"[pipeline {time.strftime('%H:%M:%S')}] {msg}", flush=True)
+
+
+def load_tokenizer(path) -> TextTokenizer:
+    """Load a saved tokenizer, dispatching on file content: WordTokenizer
+    files carry {"kind": "word"}, anything else is a ``tokenizers`` JSON
+    (which needs the ``tokenizers`` package)."""
+    try:
+        obj = json.loads(Path(path).read_text())
+    except (ValueError, UnicodeDecodeError):
+        obj = None
+    if isinstance(obj, dict) and obj.get("kind") == "word":
+        return WordTokenizer.load(path)
+    return UnigramTokenizer.load(path)
+
+
+def stage_build_trie(ws: Workspace, codes: np.ndarray, K: int) -> DocIdTrie:
+    if ws.has("trie.npz"):
+        return DocIdTrie.load(ws.path("trie.npz"))
+    ws.log("building trie")
+    trie = build_trie(codes, K)
+    trie.save(ws.path("trie.npz"))
+    ws.log(f"trie: {trie.num_internal} internal, {trie.num_groups} groups, "
+           f"{trie.memory_bytes() / 1e6:.1f} MB")
+    return trie
+
+
+def stage_retrieve(ws: Workspace, cfg: RiporConfig, model,
+                   tok: TextTokenizer, queries: Collection, trie: DocIdTrie,
+                   docids: Sequence[str], num_beams: int = 10,
+                   topk: int = 100, max_length: int = 64, batch_size: int = 8,
+                   run_name: str = "run.json", kv_cache_int8: bool = False,
+                   kv_cache_quant: str = None, max_steps: int = None,
+                   ffn_int8: bool = None,
+                   ckpt_dir=None) -> Dict[str, Dict[str, float]]:
+    """Constrained-beam retrieval over all queries -> trec run dict, also
+    written to ``ws/run_name`` (reference t5seq_aq_retrieve_docids,
+    evaluate.py:396-526).
+
+    ``model``: a RiporModel; the search runs in its dtype on its device.
+    Queries go in batches of ``batch_size``, the last padded with empty
+    queries. ``kv_cache_int8``/``kv_cache_quant``: quantized decode cache
+    (see make_beam_search_fn; "int4" packs nibble rows). ``max_steps`` < M
+    decodes a PREFIX run: pass a trie built from prefix-truncated codes —
+    the sub-smtid retrieval the paper's prefix-oriented claim is measured
+    on (reference t5seq_aq_retrieve_docids_use_sub_smtid). ``ffn_int8``
+    (None = off) is preflighted through decode.quant_gate against
+    ``ckpt_dir``'s recorded validation: an unvalidated ffn_int8 combination
+    refuses instead of silently perturbing the run."""
+    ffn_int8 = bool(ffn_int8)
+    ensure_quant_validated(kv_cache_quant
+                           or ("int8" if kv_cache_int8 else None),
+                           ffn_int8, ckpt_dir=ckpt_dir)
+    device = next(model.parameters()).device
+    fn = make_beam_search_fn(cfg, num_beams, constrained=True,
+                             dtype=model.dtype, kv_cache_int8=kv_cache_int8,
+                             kv_cache_quant=kv_cache_quant,
+                             max_steps=max_steps, ffn_int8=ffn_int8,
+                             device=device)
+    tables = tables_to_torch(succinct_tables(trie), device)
+    run: Dict[str, Dict[str, float]] = {}
+    n = len(queries)
+    for s in range(0, n, batch_size):
+        texts = [queries.text_at(i) for i in range(s, min(s + batch_size, n))]
+        pad = batch_size - len(texts)
+        ids, mask = tokenize_queries(tok, texts + [""] * pad, max_length)
+        scores, _, state = fn(model, ids, mask, tables)
+        scores = scores.cpu().numpy()
+        state = state.cpu().numpy()
+        groups = np.where(state <= -2, -2 - state, -1)
+        for bi in range(len(texts)):
+            qid = queries.ids[s + bi]
+            docs, doc_scores = expand_groups_to_docids(
+                trie, groups[bi], scores[bi], topk)
+            run[str(qid)] = {str(docids[d]): float(v)
+                             for d, v in zip(docs, doc_scores)}
+    with open(ws.path(run_name), "w") as f:
+        json.dump(run, f)
+    return run
+
+
+def stage_evaluate(ws: Workspace, run, qrel,
+                   metrics: Sequence[str] = ("mrr_10", "recall_10",
+                                             "recall_100"),
+                   perf_name: str = "perf.json") -> Dict[str, float]:
+    out = {m: evaluate_run(run, qrel, m) for m in metrics}
+    with open(ws.path(perf_name), "w") as f:
+        json.dump(out, f, indent=2)
+    ws.log(f"metrics: {out}")
+    return out

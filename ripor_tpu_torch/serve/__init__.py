@@ -3,5 +3,6 @@ from ripor_tpu_torch.serve.engine import (
     RetrievalEngine,
     ServeConfig,
 )
+from ripor_tpu_torch.serve.http import serve_http
 
-__all__ = ["BaseEngine", "RetrievalEngine", "ServeConfig"]
+__all__ = ["BaseEngine", "RetrievalEngine", "ServeConfig", "serve_http"]

@@ -14,7 +14,9 @@ waits for batch N's results and expands them to docids.
 from __future__ import annotations
 
 import logging
+import os
 import queue
+import tempfile
 import threading
 import time
 from concurrent.futures import Future
@@ -33,11 +35,24 @@ class ServeConfig:
     max_length: int = 64
     batch_sizes: Tuple[int, ...] = (1, 4, 8)
     kv_cache_quant: Optional[str] = None
-    # int8-weight FFN: not ported yet; True raises NotImplementedError
+    # int8-weight FFN (ops/int8_ffn.py); None means off (the port reads no
+    # RIPOR_FFN_INT8). The engine preflights decode.quant_gate: an ffn_int8
+    # combination must carry a recorded validation in ckpt_dir, or the
+    # engine refuses to start.
     ffn_int8: Optional[bool] = None
+    # checkpoint dir whose quant_validation.json vouches for the combo
+    ckpt_dir: Optional[str] = None
     constrained: bool = True
     max_delay_ms: float = 5.0
     stats_window: int = 10_000          # latency samples kept for percentiles
+    # opt-in device tracing via GET /profile (serve/http.py). Off by
+    # default: the endpoint occupies a handler thread for the capture
+    # window and writes to local disk, so it must be an operator decision,
+    # not a client capability. Traces always land under profile_dir (the
+    # client cannot choose the path); the reference's /tmp/ripor_trace,
+    # under TMPDIR where that is set.
+    enable_profile: bool = False
+    profile_dir: str = os.path.join(tempfile.gettempdir(), "ripor_trace")
     # how long stop() waits for the in-flight device batch before logging
     # that the batcher is wedged
     stop_join_timeout_s: float = 300.0
@@ -296,6 +311,7 @@ class RetrievalEngine(BaseEngine):
 
         from ripor_tpu_torch.decode.beam import (make_beam_search_fn,
                                                  resolve_device)
+        from ripor_tpu_torch.decode.quant_gate import ensure_quant_validated
         from ripor_tpu_torch.models.ripor import RiporModel
         from ripor_tpu_torch.trie.succinct import (succinct_tables,
                                                    tables_to_torch)
@@ -305,6 +321,9 @@ class RetrievalEngine(BaseEngine):
                 "data-parallel serving over a mesh is not ported to "
                 "ripor_tpu_torch yet (a later slice of the port: ROADMAP.md "
                 "Queue 1 item 5)")
+        ensure_quant_validated(serve_cfg.kv_cache_quant,
+                               bool(serve_cfg.ffn_int8),
+                               ckpt_dir=serve_cfg.ckpt_dir)
         self._device = resolve_device(device)
         self.cfg = cfg
         self._tok = tok

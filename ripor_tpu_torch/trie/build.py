@@ -81,9 +81,9 @@ def build_trie(codes: np.ndarray, K: int,
     of >= 2 distinct smtids becomes an internal node, a run of exactly 1
     becomes a singleton-chain pointer.
 
-    ``use_native=True`` (the C++ builder of native/ripor_native.cc) is not
-    available in this package yet and raises; the vectorized numpy build
-    below is the only builder.
+    ``use_native`` routes to the C++ builder (native/ripor_native.cc,
+    through native_ext); the default uses it for corpora above 200k docs
+    when the library builds. Both builders give the same trie.
     """
     codes = np.asarray(codes)
     if codes.ndim != 2:
@@ -91,10 +91,17 @@ def build_trie(codes: np.ndarray, K: int,
     n, M = codes.shape
     if codes.min() < 0 or codes.max() >= K:
         raise ValueError(f"codes out of range [0, {K})")
+
+    if use_native is None:
+        use_native = n > 200_000
     if use_native:
-        raise NotImplementedError(
-            "the native trie builder (native_ext) is not ported to "
-            "ripor_tpu_torch yet; call build_trie with use_native=None/False")
+        from ripor_tpu_torch.native_ext import trie_build_native
+        result = trie_build_native(codes, K)
+        if result is not None:
+            children, unique_codes, group_doc_offsets, group_docids = result
+            return DocIdTrie(children=children, unique_codes=unique_codes,
+                             group_doc_offsets=group_doc_offsets,
+                             group_docids=group_docids, K=K)
 
     # sort docs by code, group identical codes
     order = np.lexsort(codes.T[::-1])           # lexicographic over columns 0..M-1

@@ -172,15 +172,15 @@ def test_write_attend_beam_search_matches_oracle():
     # odd spans take the non-deferred path, which holds exact caches only
     (dict(cache_segments=4, kv_cache_quant="int8"), ValueError),
     (dict(kvg_quant_xla=True), ValueError),
-    (dict(ffn_int8=True), NotImplementedError),
+    # ffn_int8 runs on the megarow and deferred paths only
+    (dict(ffn_int8=True, deferred=False), ValueError),
     # the deferred path's kvg_quant_xla is for int8 caches only
     (dict(megarow=False, kv_cache_quant="int4", kvg_quant_xla=True),
      ValueError),
     (dict(deferred=False, kv_cache_quant="int8"), ValueError),
 ])
 def test_refuses_what_the_reference_refuses(world, kwargs, exc):
-    """Arguments are validated as the reference validates them; ffn_int8,
-    not ported yet, raises NotImplementedError."""
+    """Arguments are validated as the reference validates them."""
     args = dict(constrained=True, dtype=torch.float32, cache_segments=3,
                 device="cpu")
     args.update(kwargs)

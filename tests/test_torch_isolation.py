@@ -1,4 +1,5 @@
-"""The port stands alone: it imports no JAX and no ripor_tpu module, builds
+"""The port stands alone: it imports no JAX and no ripor_tpu module (nor,
+at import, tensorstore or tokenizers, which the card's machine lacks), builds
 no kernel at import, runs on CUDA unless told otherwise, and launches no
 kernel for CPU tensors."""
 import os
@@ -41,7 +42,8 @@ def test_no_jax_flax_or_reference_modules_imported():
         import chip_smoke
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax",
-                                            "ripor_tpu"))
+                                            "ripor_tpu", "tensorstore",
+                                            "tokenizers"))
         print("BAD", bad)
         assert not bad, bad
     """)

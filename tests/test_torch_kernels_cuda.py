@@ -641,3 +641,49 @@ def test_staged_planes_keep_exact_products(kernel, gen):
     a, b = _run_both(kernel, args)
     assert (off.float() - b.float()).abs().max().item() > 0.25
     torch.testing.assert_close(a.float(), b.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_cli_retrieve_on_card_equals_engine(gen, tmp_path):
+    """The port's `retrieve` CLI on the card (a toy workspace the port
+    writes) gives the run RetrievalEngine gives on the card: same docids
+    in the same order, same scores."""
+    import json
+
+    import numpy as np
+
+    from ripor_tpu_torch.cli.main import main as cli
+    from ripor_tpu_torch.data.datasets import save_docid_to_smtid
+    from ripor_tpu_torch.data.tokenizer import WordTokenizer
+    from ripor_tpu_torch.models import init_params, ripor_small
+    from ripor_tpu_torch.serve import RetrievalEngine, ServeConfig
+    from ripor_tpu_torch.train import save_params
+    from ripor_tpu_torch.trie import build_trie
+
+    cfg = ripor_small(M=8, K=16)
+    sd = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    ws = tmp_path / "ws"
+    save_params(ws / "checkpoints/final", sd, cfg)
+    words = [f"w{i}" for i in range(200)]
+    WordTokenizer.train(words).save(ws / "tokenizer.json")
+    rng = np.random.default_rng(0)
+    codes = rng.integers(0, 16, (300, 8))
+    docids = [f"d{i}" for i in range(300)]
+    save_docid_to_smtid(ws / "docid_to_smtid.json", docids, codes)
+    texts = [" ".join(rng.choice(words, 4)) for _ in range(11)]
+    (tmp_path / "raw.tsv").write_text(
+        "".join(f"q{i}\t{t}\n" for i, t in enumerate(texts)))
+    before = dict(KERNEL_LAUNCHES)
+    cli(["retrieve", "--workspace", str(ws), "--queries", str(tmp_path),
+         "--beam", "16", "--topk", "20"])
+    assert all(KERNEL_LAUNCHES[k] > before[k] for k in (
+        "reorder_cache_all", "step_attention_seq", "beam_gather_rows"))
+    run = json.loads((ws / "run.json").read_text())
+    eng = RetrievalEngine(cfg, sd, WordTokenizer.load(ws / "tokenizer.json"),
+                          build_trie(codes, 16), docids,
+                          ServeConfig(num_beams=16, topk=20,
+                                      batch_sizes=(8,)), device="cuda")
+    want = eng.retrieve_batch(texts)
+    assert list(run) == [f"q{i}" for i in range(11)]
+    for qid, res in zip(run, want):
+        assert len(res) == 16
+        assert list(run[qid].items()) == res
