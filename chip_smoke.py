@@ -54,7 +54,18 @@ nonzero and no result line is printed:
      (403); and ffn_int8 on the megarow and deferred paths: at the JAX
      package's bar (tests/test_beam.py:646-672) at that test's geometry,
      and one search each at full width, beside the exact path. Counters
-     are zeroed before each part and read after it.
+     are zeroed before each part and read after it;
+  8. training at full t5-base width and depth (ripor_base(M=32, K=256),
+     float32 params and compute, TF32 off, dropout 0.1), loss
+     lng_knp_margin_mse, which launches none of the kernels above: one
+     step with dropout off on the card and on the CPU from the same params
+     (losses, grad_norm and updated params agree); Trainer.run at B=16
+     from MarginMSECollator over a synthetic trainset (ms a step,
+     examples/s, tokens/s, MFU against the float32 peak, peak memory,
+     the busy share of one profiled step), and with grad_accum=2 on
+     2 x 8; 4 steps against 2 + a checkpoint + a new Trainer + 2; and
+     ``train --config`` as a subprocess on phase 7's workspace, whose
+     checkpoint ``retrieve`` then serves with phase 7's checks.
 
 Prints the card's name and power limit (nvidia-smi), per-phase lines, then
 a ``{"kernels": [...]}`` line and, last, the contract line
@@ -64,6 +75,7 @@ without one, and outside a checkout of the repository.
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -691,11 +703,12 @@ def small_agreement():
             "max_abs_score_diff": float(np.abs(s0 - s1).max())}))
 
 
-def where_time_goes(label, search, unprofiled_s):
-    """Phases 5 and 6: one B=8 decode (``search()``) under
-    torch.profiler — device time by kernel and the device's busy share of
-    the wall time (the union of kernel intervals over the host clock
-    around the call)."""
+def where_time_goes(label, search, unprofiled_s, shape=None):
+    """Phases 5, 6 and 8: one B=8 decode (or, phase 8, one train step;
+    ``shape`` then replaces the decode's batch and steps in the record)
+    under torch.profiler — device time by kernel and the device's busy
+    share of the wall time (the union of kernel intervals over the host
+    clock around the call)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -717,7 +730,7 @@ def where_time_goes(label, search, unprofiled_s):
         by_name[name] = by_name.get(name, 0.0) + (end - start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     print("profile", json.dumps({
-        "run": label, "batch": B, "steps": M,
+        "run": label, **(shape or {"batch": B, "steps": M}),
         "wall_ms": wall_s * 1e3, "unprofiled_wall_ms": unprofiled_s * 1e3,
         "device_events": len(kern),
         "device_busy_ms": busy_us / 1e3 if kern else "not measured",
@@ -993,9 +1006,9 @@ def mrr_qrel(results, qids):
     return qrel, ranks
 
 
-def cli_phase(world, launches):
+def cli_phase(world, launches, tmp):
     """Phase 7: the main path through its entry points. A workspace written
-    by the port's own functions (phase 4's model saved by save_params, its
+    in ``tmp`` by the port's own functions (phase 4's model saved by save_params, its
     corpus as docid_to_smtid.json, a WordTokenizer, 16 queries in raw.tsv);
     ``retrieve`` at beam = topk = 1000 as a subprocess and in process
     (run.json equal to RetrievalEngine.retrieve_batch), ``--nranks 2`` and
@@ -1008,7 +1021,6 @@ def cli_phase(world, launches):
     searches' launches to ``launches``."""
     import http.client
     import os
-    import tempfile
 
     import torch
     from ripor_tpu_torch.data.datasets import save_docid_to_smtid
@@ -1033,138 +1045,137 @@ def cli_phase(world, launches):
             check(counts[k] > 0, f"{tag}: kernel {k} never launched")
         return counts
 
-    with tempfile.TemporaryDirectory(prefix="ripor_ws_") as tmp:
-        ws = os.path.join(tmp, "ws")
-        ckpt = os.path.join(ws, "checkpoints", "final")
-        t0 = time.monotonic()
-        save_params(ckpt, world["sd"], cfg)
-        os.makedirs(os.path.join(tmp, "queries"))
-        with open(os.path.join(tmp, "queries", "raw.tsv"), "w") as f:
-            f.writelines(f"{q}\t{t}\n" for q, t in zip(qids, texts))
-        WordTokenizer.train(world["words"]).save(
-            os.path.join(ws, "tokenizer.json"))
-        save_docid_to_smtid(os.path.join(ws, "docid_to_smtid.json"), docids,
-                            world["codes"])
-        print("cli_workspace", json.dumps({
-            "seconds": time.monotonic() - t0, "queries": len(qids),
-            "params_pt_bytes": os.path.getsize(
-                os.path.join(ckpt, "params.pt"))}))
-        base = ["retrieve", "--workspace", ws,
-                "--queries", os.path.join(tmp, "queries"),
-                "--beam", "1000", "--topk", "1000", "--device", dev]
-        torch.cuda.empty_cache()
+    ws = os.path.join(tmp, "ws")
+    ckpt = os.path.join(ws, "checkpoints", "final")
+    t0 = time.monotonic()
+    save_params(ckpt, world["sd"], cfg)
+    os.makedirs(os.path.join(tmp, "queries"))
+    with open(os.path.join(tmp, "queries", "raw.tsv"), "w") as f:
+        f.writelines(f"{q}\t{t}\n" for q, t in zip(qids, texts))
+    WordTokenizer.train(world["words"]).save(
+        os.path.join(ws, "tokenizer.json"))
+    save_docid_to_smtid(os.path.join(ws, "docid_to_smtid.json"), docids,
+                        world["codes"])
+    print("cli_workspace", json.dumps({
+        "seconds": time.monotonic() - t0, "queries": len(qids),
+        "params_pt_bytes": os.path.getsize(
+            os.path.join(ckpt, "params.pt"))}))
+    base = ["retrieve", "--workspace", ws,
+            "--queries", os.path.join(tmp, "queries"),
+            "--beam", "1000", "--topk", "1000", "--device", dev]
+    torch.cuda.empty_cache()
 
-        # the CLI as a user runs it: a process of its own (it builds the
-        # trie and saves trie.npz; the kernels come from the build cache)
-        t0 = time.monotonic()
-        sub = subprocess.run(
-            [sys.executable, "-m", "ripor_tpu_torch.cli.main", *base,
-             "--run-name", "run_subprocess.json"],
-            cwd=os.path.dirname(os.path.abspath(__file__)),
-            capture_output=True, text=True, timeout=600)
-        for line in sub.stdout.splitlines():
-            print("cli subprocess:", line)
-        check(sub.returncode == 0, f"retrieve subprocess exit "
-              f"{sub.returncode}: {sub.stderr[-2000:]}")
-        sub_timing = timing_line(sub.stdout)
-        sub_timing["process_s"] = time.monotonic() - t0
+    # the CLI as a user runs it: a process of its own (it builds the
+    # trie and saves trie.npz; the kernels come from the build cache)
+    t0 = time.monotonic()
+    sub = subprocess.run(
+        [sys.executable, "-m", "ripor_tpu_torch.cli.main", *base,
+         "--run-name", "run_subprocess.json"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=600)
+    for line in sub.stdout.splitlines():
+        print("cli subprocess:", line)
+    check(sub.returncode == 0, f"retrieve subprocess exit "
+          f"{sub.returncode}: {sub.stderr[-2000:]}")
+    sub_timing = timing_line(sub.stdout)
+    sub_timing["process_s"] = time.monotonic() - t0
 
-        zero()
-        out = run_cli(base, "in process")
-        counts = need("cli retrieve", MEGAROW_KERNELS)
-        for k in MEGAROW_KERNELS:
-            launches[k] = counts[k]
-        timing = timing_line(out)
-        run = read_run(os.path.join(ws, "run.json"))
-        check(list(run) == qids and all(len(r) == 1000
-                                        for r in run.values()),
-              "cli run.json: not 16 queries of 1000 docs")
-        check_results("cli run.json", list(run.values()))
-        check_same_run("cli subprocess vs in process",
-                       read_run(os.path.join(ws, "run_subprocess.json")),
-                       run)
-        print("cli_retrieve", json.dumps({
-            "batch": 8, "beam": 1000, "topk": 1000, "in_process": timing,
-            "subprocess": sub_timing, "launches": {
-                k: counts[k] for k in MEGAROW_KERNELS}}))
+    zero()
+    out = run_cli(base, "in process")
+    counts = need("cli retrieve", MEGAROW_KERNELS)
+    for k in MEGAROW_KERNELS:
+        launches[k] = counts[k]
+    timing = timing_line(out)
+    run = read_run(os.path.join(ws, "run.json"))
+    check(list(run) == qids and all(len(r) == 1000
+                                    for r in run.values()),
+          "cli run.json: not 16 queries of 1000 docs")
+    check_results("cli run.json", list(run.values()))
+    check_same_run("cli subprocess vs in process",
+                   read_run(os.path.join(ws, "run_subprocess.json")),
+                   run)
+    print("cli_retrieve", json.dumps({
+        "batch": 8, "beam": 1000, "topk": 1000, "in_process": timing,
+        "subprocess": sub_timing, "launches": {
+            k: counts[k] for k in MEGAROW_KERNELS}}))
 
-        tok = load_tokenizer(os.path.join(ws, "tokenizer.json"))
-        params = load_params(ckpt)
-        eng = RetrievalEngine(cfg, params, tok, trie, docids,
-                              ServeConfig(num_beams=1000, topk=1000,
-                                          batch_sizes=(8,)), device=dev)
-        want = eng.retrieve_batch(texts)
-        del eng
-        torch.cuda.empty_cache()
-        check_same_run("cli run.json vs RetrievalEngine", run,
-                       dict(zip(qids, want)))
+    tok = load_tokenizer(os.path.join(ws, "tokenizer.json"))
+    params = load_params(ckpt)
+    eng = RetrievalEngine(cfg, params, tok, trie, docids,
+                          ServeConfig(num_beams=1000, topk=1000,
+                                      batch_sizes=(8,)), device=dev)
+    want = eng.retrieve_batch(texts)
+    del eng
+    torch.cuda.empty_cache()
+    check_same_run("cli run.json vs RetrievalEngine", run,
+                   dict(zip(qids, want)))
 
-        for rank in (0, 1):
-            run_cli(base + ["--rank", str(rank), "--nranks", "2",
-                            "--run-name", "run_shard.json"], f"rank {rank}")
-        run_cli(["retrieve-merge", "--workspace", ws, "--nranks", "2",
-                 "--run-name", "run_shard.json"], "merge")
-        merged = read_run(os.path.join(ws, "run_shard.json"))
-        check_same_run("retrieve-merge vs single run",
-                       {q: merged[q] for q in qids}, run)
+    for rank in (0, 1):
+        run_cli(base + ["--rank", str(rank), "--nranks", "2",
+                        "--run-name", "run_shard.json"], f"rank {rank}")
+    run_cli(["retrieve-merge", "--workspace", ws, "--nranks", "2",
+             "--run-name", "run_shard.json"], "merge")
+    merged = read_run(os.path.join(ws, "run_shard.json"))
+    check_same_run("retrieve-merge vs single run",
+                   {q: merged[q] for q in qids}, run)
 
-        qrel, ranks = mrr_qrel(want, qids)
-        qrel_path = os.path.join(tmp, "qrel.json")
-        with open(qrel_path, "w") as f:
-            json.dump(qrel, f)
-        got = json.loads(run_cli(["evaluate", "--qrel", qrel_path, "--run",
-                                  os.path.join(ws, "run.json"),
-                                  "--metric", "mrr_10"], "evaluate"))
-        expect = sum(1.0 / r for r in ranks) / len(ranks)
-        check(got == {"mrr_10": expect},
-              f"evaluate: {got}, constructed MRR@10 {expect}")
-        print("cli_evaluate", json.dumps({"ranks": ranks, "mrr_10": expect}))
+    qrel, ranks = mrr_qrel(want, qids)
+    qrel_path = os.path.join(tmp, "qrel.json")
+    with open(qrel_path, "w") as f:
+        json.dump(qrel, f)
+    got = json.loads(run_cli(["evaluate", "--qrel", qrel_path, "--run",
+                              os.path.join(ws, "run.json"),
+                              "--metric", "mrr_10"], "evaluate"))
+    expect = sum(1.0 / r for r in ranks) / len(ranks)
+    check(got == {"mrr_10": expect},
+          f"evaluate: {got}, constructed MRR@10 {expect}")
+    print("cli_evaluate", json.dumps({"ranks": ranks, "mrr_10": expect}))
 
-        # serve with --kv-quant int4 settings
-        eng = RetrievalEngine(cfg, params, tok, trie, docids,
-                              ServeConfig(num_beams=1000, topk=1000,
-                                          batch_sizes=(8,),
-                                          kv_cache_quant="int4",
-                                          ckpt_dir=ckpt), device=dev)
-        want4 = eng.retrieve_batch(texts)
-        zero()
-        server = serve_http(eng, port=0, block=False)
-        host, port = server.server_address
-        try:
-            conn = http.client.HTTPConnection(host, port, timeout=600)
-            got4 = []
-            for part in (texts[:8], texts[8:]):
-                conn.request("POST", "/retrieve",
-                             body=json.dumps({"queries": part}),
-                             headers={"Content-Type": "application/json"})
-                resp = conn.getresponse()
-                body = json.loads(resp.read())
-                check(resp.status == 200, f"POST /retrieve: {resp.status}")
-                got4 += [[tuple(x) for x in r] for r in body["results"]]
-            conn.request("GET", "/stats")
+    # serve with --kv-quant int4 settings
+    eng = RetrievalEngine(cfg, params, tok, trie, docids,
+                          ServeConfig(num_beams=1000, topk=1000,
+                                      batch_sizes=(8,),
+                                      kv_cache_quant="int4",
+                                      ckpt_dir=ckpt), device=dev)
+    want4 = eng.retrieve_batch(texts)
+    zero()
+    server = serve_http(eng, port=0, block=False)
+    host, port = server.server_address
+    try:
+        conn = http.client.HTTPConnection(host, port, timeout=600)
+        got4 = []
+        for part in (texts[:8], texts[8:]):
+            conn.request("POST", "/retrieve",
+                         body=json.dumps({"queries": part}),
+                         headers={"Content-Type": "application/json"})
             resp = conn.getresponse()
-            stats = json.loads(resp.read())
-            check(resp.status == 200 and stats["served"] >= 32,
-                  f"GET /stats: {resp.status} {stats}")
-            conn.request("GET", "/profile?ms=10")
-            resp = conn.getresponse()
-            resp.read()
-            check(resp.status == 403, f"disabled /profile: {resp.status}")
-        finally:
-            server.shutdown()
-            server.server_close()
-            eng.stop()
-        counts = need("serve", MEGAROW_KERNELS)
-        check_results("serve int4", got4)
-        check_same_run("HTTP answers vs retrieve_batch",
-                       dict(zip(qids, got4)), dict(zip(qids, want4)))
-        print("cli_serve", json.dumps({
-            "cache": "int4", "requests": 2, "queries": 16,
-            "stats": {k: stats[k] for k in ("served", "qps", "p50_s",
-                                            "batch_hist")},
-            "launches": {k: counts[k] for k in MEGAROW_KERNELS}}))
-        del eng, params
-        torch.cuda.empty_cache()
+            body = json.loads(resp.read())
+            check(resp.status == 200, f"POST /retrieve: {resp.status}")
+            got4 += [[tuple(x) for x in r] for r in body["results"]]
+        conn.request("GET", "/stats")
+        resp = conn.getresponse()
+        stats = json.loads(resp.read())
+        check(resp.status == 200 and stats["served"] >= 32,
+              f"GET /stats: {resp.status} {stats}")
+        conn.request("GET", "/profile?ms=10")
+        resp = conn.getresponse()
+        resp.read()
+        check(resp.status == 403, f"disabled /profile: {resp.status}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        eng.stop()
+    counts = need("serve", MEGAROW_KERNELS)
+    check_results("serve int4", got4)
+    check_same_run("HTTP answers vs retrieve_batch",
+                   dict(zip(qids, got4)), dict(zip(qids, want4)))
+    print("cli_serve", json.dumps({
+        "cache": "int4", "requests": 2, "queries": 16,
+        "stats": {k: stats[k] for k in ("served", "qps", "p50_s",
+                                        "batch_hist")},
+        "launches": {k: counts[k] for k in MEGAROW_KERNELS}}))
+    del eng, params
+    torch.cuda.empty_cache()
 
     ffn_int8_check(world, launches)
 
@@ -1277,6 +1288,332 @@ def ffn_int8_check(world, launches):
     torch.cuda.empty_cache()
 
 
+# ---- phase 8: training ----
+
+TRAIN_B, TRAIN_LQ, TRAIN_PREFIXES = 16, 64, (4, 8, 16)
+TRAIN_LOSS = "t5seq_aq_encoder_lng_knp_margin_mse"
+
+
+def train_step_flops(t5, b, lq, m):
+    """Operations of one lng_knp_margin_mse step as the port runs it: the
+    encoder once over b x lq tokens, the decoder twice (pos and neg codes)
+    over b x m, with their matmuls and attention products; 2 operations a
+    multiply-add, and the backward twice the forward."""
+    d, f, inner = t5.d_model, t5.d_ff, t5.inner_dim
+    enc = t5.num_layers * b * (lq * (4 * d * inner + 2 * d * f)
+                               + 2 * lq * lq * inner)
+    dec = t5.num_decoder_layers * b * (
+        m * (6 * d * inner + 2 * d * f) + lq * 2 * d * inner
+        + 2 * m * m * inner + 2 * m * lq * inner)
+    return 3 * 2 * (enc + 2 * dec)
+
+
+def write_trainset(path, qids, n, rng):
+    """A synthetic teacher-score trainset over phase 4's corpus: n lines,
+    each a query, a positive and 3 negatives with descending scores, and
+    per-prefix scores for prefixes 4, 8 and 16."""
+    with open(path, "w") as f:
+        for i in range(n):
+            docs = rng.choice(N_DOCS, 4, replace=False)
+            rec = {"qid": qids[i % len(qids)],
+                   "docids": [f"doc{j}" for j in docs],
+                   "scores": sorted((rng.standard_normal(4) * 5).tolist(),
+                                    reverse=True)}
+            for p in TRAIN_PREFIXES:
+                rec[f"smtid_{p}_scores"] = (rng.standard_normal(4)
+                                            * p / 4).tolist()
+            f.write(json.dumps(rec) + "\n")
+
+
+def param_agreement(got, want, rtol=1e-5, atol=1e-6, steady=None):
+    """Max |got - want| over all params, the share of entries outside
+    rtol/atol, and the share bit-equal. ``steady``: per param a mask of
+    the entries to count apart (``steady_loose_share``)."""
+    import torch
+    worst, loose, equal, n, s_loose, s_n = 0.0, 0, 0, 0, 0, 0
+    for k, w in want.items():
+        w = w.detach()
+        g = got[k].detach().to(w.device)
+        worst = max(worst, float((g - w).abs().max()))
+        far = ~torch.isclose(g, w, rtol=rtol, atol=atol)
+        loose += int(far.sum())
+        equal += int((g == w).sum())
+        n += w.numel()
+        if steady is not None:
+            s_loose += int((far & steady[k]).sum())
+            s_n += int(steady[k].sum())
+    out = {"max_abs": worst, "loose_share": loose / n,
+           "equal_share": equal / n, "entries": n}
+    if steady is not None:
+        out.update(steady_entries=s_n, steady_loose_share=s_loose / s_n)
+    return out
+
+
+def train_phase(world, tmp):
+    """Phase 8: training at full t5-base width and depth
+    (ripor_base(M=32, K=256), 12 + 12 layers, float32 params and compute,
+    dropout 0.1), loss lng_knp_margin_mse. (a) One step, dropout off, on
+    the card and on the CPU from the same params: losses, grad_norm and
+    updated params agree. (b) Trainer.run: 2 warm-up and 8 timed steps
+    at B=16 from MarginMSECollator over a synthetic trainset (ms a step,
+    examples/s, tokens/s, MFU against the float32 peak, peak memory, the
+    busy share of one profiled step), then grad_accum=2 on 2 x 8. (c) 4
+    uninterrupted steps against 2, a checkpoint, a new Trainer and 2
+    more. (d) ``train --config`` as a subprocess on phase 7's workspace
+    (init_checkpoint its params, 64 examples, B=16, 4 steps), then
+    ``retrieve`` of the trained checkpoint with phase 7's checks."""
+    import dataclasses
+    import os
+
+    import torch
+    from ripor_tpu_torch.data.collators import (MarginMSECollator,
+                                                batches_from_teacher_examples)
+    from ripor_tpu_torch.data.datasets import (Collection,
+                                               TeacherScoreExamples)
+    from ripor_tpu_torch.models import RiporModel, init_params, ripor_base
+    from ripor_tpu_torch.pipeline import load_tokenizer
+    from ripor_tpu_torch.train import TrainConfig, Trainer, load_params
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on; phase 8 trains in float32")
+    print("train_precision", json.dumps({
+        "params": "float32", "compute": "float32",
+        "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}))
+    cfg = ripor_base(M=M, K=K)
+    t5 = cfg.t5
+    check(t5.dropout_rate == 0.1, "t5-base dropout is not 0.1")
+    rng = np.random.default_rng(SEED + 8)
+    t0 = time.monotonic()
+    sd = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    tcfg = TrainConfig(loss_type=TRAIN_LOSS)
+    init_s = time.monotonic() - t0
+    codes = world["codes"]
+
+    # (a) one step, dropout off, card against CPU
+    pick = rng.integers(0, N_DOCS, (2, 2))
+    batch = {"query_ids": rng.integers(1, t5.vocab_size, (2, TRAIN_LQ)
+                                       ).astype(np.int32),
+             "query_mask": np.ones((2, TRAIN_LQ), np.int32),
+             "pos_codes": codes[pick[:, 0]].astype(np.int32),
+             "neg_codes": codes[pick[:, 1]].astype(np.int32)}
+    for key in ["teacher"] + [f"smtid_{p}_teacher" for p in TRAIN_PREFIXES]:
+        for side in ("pos", "neg"):
+            batch[f"{key}_{side}_score"] = (rng.standard_normal(2) * 5
+                                            ).astype(np.float32)
+    det = dataclasses.replace(cfg, t5=dataclasses.replace(t5,
+                                                          dropout_rate=0.0))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = RiporModel(det, device=dev)
+        trainer = Trainer(model, tcfg, sd)
+        t0 = time.monotonic()
+        _, metrics = trainer.run([batch])
+        metrics = {k: float(v) for k, v in metrics.items()}
+        out[dev] = (metrics, {k: v.detach().cpu()
+                              for k, v in model.state_dict().items()},
+                    time.monotonic() - t0)
+        if dev == "cpu":
+            # entries whose clipped gradient is at least 100x Adam's eps:
+            # there one step moves each copy by ~lr in the same direction
+            scale = min(1.0, tcfg.grad_clip / metrics["grad_norm"])
+            steady = {k: p.grad.abs() * scale >= 1e-6
+                      for k, p in model.named_parameters()}
+        del trainer, model
+    torch.cuda.empty_cache()
+    (mc, pc, cpu_s), (mg, pg, gpu_s) = out["cpu"], out["cuda"]
+    want_keys = {"rank", "rank_4", "rank_8", "rank_16", "loss", "grad_norm"}
+    check(set(mc) == set(mg) == want_keys, f"phase 8a metrics {sorted(mg)}")
+    rel = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-30) for k in mc}
+    agree = param_agreement(pg, pc, steady=steady)
+    moved = param_agreement(pc, sd)
+    print("train_parity", json.dumps({
+        "batch": 2, "query_tokens": TRAIN_LQ, "codes": M,
+        "prefixes": TRAIN_PREFIXES, "dropout": 0.0, "lr": tcfg.learning_rate,
+        "cpu": mc, "cuda": mg, "rel_diff": rel, "params": agree,
+        "params_moved_share": 1.0 - moved["equal_share"],
+        "cpu_step_s": cpu_s, "cuda_step_s": gpu_s, "init_s": init_s}))
+    # the tolerance (measured on the card; PERF.md, training): losses within
+    # 1e-4 and grad_norm within 1e-3 relative (f32 sums in another order
+    # through 24 layers: grads agree to ~3e-4 of their tensor's largest
+    # entry); updated params at most 2 lr apart (one Adam step's reach),
+    # at most 1 % of entries outside rtol 1e-5 / atol 1e-6, and almost
+    # none (1e-6) among the entries whose clipped gradient is at least
+    # 100x Adam's eps — the loose entries are those near eps, where
+    # Adam's g / (|g| + eps) turns gradient noise into update noise
+    check(all(np.isfinite(v) for v in mg.values()), "8a: non-finite metric")
+    check(max(rel[k] for k in rel if k != "grad_norm") <= 1e-4
+          and rel["grad_norm"] <= 1e-3, f"8a: card and CPU differ: {rel}")
+    check(agree["max_abs"] <= 2 * tcfg.learning_rate + 1e-6
+          and agree["loose_share"] <= 1e-2
+          and agree["steady_loose_share"] <= 1e-6,
+          f"8a: updated params differ: {agree}")
+    del out, pc, pg, steady
+
+    # (b) speed: Trainer.run over collated batches
+    ws = os.path.join(tmp, "ws")
+    qdir = os.path.join(tmp, "queries")
+    queries = Collection(qdir)
+    trainset = os.path.join(tmp, "train.jsonl")
+    write_trainset(trainset, queries.ids, 10 * TRAIN_B, rng)
+    examples = TeacherScoreExamples(trainset)
+    check(examples.prefix_lengths_present() == TRAIN_PREFIXES,
+          "8b: prefix scores missing")
+    coll = MarginMSECollator(
+        load_tokenizer(os.path.join(ws, "tokenizer.json")), queries,
+        dict(zip(world["docids"], codes)), max_length=TRAIN_LQ,
+        prefix_lengths=TRAIN_PREFIXES)
+    batches = list(batches_from_teacher_examples(examples, coll, TRAIN_B,
+                                                 seed=SEED))
+    check(len(batches) == 10, f"8b: {len(batches)} batches")
+    flops = train_step_flops(t5, TRAIN_B, TRAIN_LQ, M)
+    positions = TRAIN_B * (TRAIN_LQ + 2 * M)
+
+    def timed_run(tc, bs, label):
+        logs = []
+        model = RiporModel(cfg, device="cuda")
+        trainer = Trainer(model, tc, sd,
+                          log_fn=lambda m, s: logs.append((s, m)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        trainer.run(bs, seed=SEED, log_every=1, flops_per_step=flops)
+        wall_s = time.monotonic() - t0
+        check([s for s, _ in logs] == list(range(1, len(bs) + 1)),
+              f"{label}: steps {[s for s, _ in logs]}")
+        for s, m in logs:
+            check({"rank", "rank_4", "rank_8", "rank_16"} <= set(m),
+                  f"{label}: step {s} lacks a prefix loss: {sorted(m)}")
+            check(all(np.isfinite(m[k]) for k in
+                      ("loss", "rank", "rank_4", "rank_8", "rank_16",
+                       "grad_norm")), f"{label}: step {s} not finite: {m}")
+        last = logs[-1][1]
+        check(last["steps"] == len(bs) - 2, f"{label}: timed {last}")
+        p50 = last["p50_s"]
+        rec = {"run": label, "batch": TRAIN_B, "grad_accum": tc.grad_accum,
+               "steps_warmup": 2, "steps_timed": last["steps"],
+               "ms_per_step_median": p50 * 1e3,
+               "ms_per_step_mean": last["mean_s"] * 1e3,
+               "ms_per_step_p95": last["p95_s"] * 1e3,
+               "examples_per_s": TRAIN_B / p50,
+               "positions_per_step": positions,
+               "tokens_per_s": positions / p50,
+               "real_query_tokens_per_step": float(np.mean(
+                   [b["query_mask"].sum() for b in bs])),
+               "flops_per_step": flops,
+               "mfu_f32": flops / p50 / F32_FLOPS,
+               "step_timer_mfu": last.get("mfu"),
+               "peak_flops_f32": F32_FLOPS,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "wall_s": wall_s,
+               "losses_first": {k: logs[0][1][k] for k in
+                                ("loss", "rank", "rank_4", "rank_8",
+                                 "rank_16", "grad_norm")},
+               "losses_last": {k: last[k] for k in
+                               ("loss", "rank", "rank_4", "rank_8",
+                                "rank_16", "grad_norm")}}
+        return trainer, rec
+
+    trainer, rec = timed_run(tcfg, batches, "train B=16")
+    one = batches[0]
+
+    def one_step():
+        return trainer.run([one], seed=SEED, log_every=10 ** 9,
+                           batches_start=trainer.state.step)
+    one_step()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    one_step()
+    torch.cuda.synchronize()
+    where_time_goes("train lng_knp B=16", one_step, time.monotonic() - t0,
+                    {"batch": TRAIN_B, "steps": 1})
+    print("train_speed", json.dumps(rec))
+    del trainer
+    torch.cuda.empty_cache()
+    half = TRAIN_B // 2
+    micro = [{k: v.reshape((2, half) + v.shape[1:]) for k, v in b.items()}
+             for b in batches]
+    trainer, rec = timed_run(dataclasses.replace(tcfg, grad_accum=2), micro,
+                             "train 2 x 8 grad_accum=2")
+    print("train_speed", json.dumps(rec))
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (c) resume: 4 steps against 2 + checkpoint + a new Trainer + 2
+    ck = os.path.join(tmp, "train_ck")
+    model = RiporModel(cfg, device="cuda")
+    full, _ = Trainer(model, tcfg, sd).run(batches[:4], seed=SEED)
+    full = {k: v.detach().clone() for k, v in full.params.items()}
+    del model
+    t0 = time.monotonic()
+    Trainer(RiporModel(cfg, device="cuda"), tcfg, sd, checkpoint_dir=ck,
+            save_steps=2).run(batches[:2], seed=SEED)
+    torch.cuda.empty_cache()
+    t2 = Trainer(RiporModel(cfg, device="cuda"), tcfg, sd, checkpoint_dir=ck,
+                 save_steps=2)
+    check(t2.resume_step == 2, f"8c: resumed at {t2.resume_step}")
+    resumed, _ = t2.run(batches[:4], seed=SEED)
+    resume_s = time.monotonic() - t0
+    agree = param_agreement(resumed.params, full)
+    print("train_resume", json.dumps({
+        "steps": 4, "checkpoint_at": 2, "params": agree,
+        "seconds_with_checkpoint": resume_s,
+        "state_bytes": os.path.getsize(os.path.join(ck, "2", "state.pt"))}))
+    check(agree["max_abs"] <= 2 * tcfg.learning_rate
+          and agree["loose_share"] <= 1e-3,
+          f"8c: resumed run differs: {agree}")
+    del t2, resumed, full
+    torch.cuda.empty_cache()
+
+    # (d) the entry points: train --config, then retrieve the checkpoint
+    train64 = os.path.join(tmp, "train64.jsonl")
+    with open(trainset) as f, open(train64, "w") as g:
+        g.writelines(f.readlines()[:4 * TRAIN_B])
+    ckpt = os.path.join(ws, "checkpoints", "final")
+    conf = os.path.join(tmp, "train_config.json")
+    with open(conf, "w") as f:
+        json.dump({"workspace": ws, "queries_dir": qdir,
+                   "examples_path": train64, "loss_type": TRAIN_LOSS,
+                   "model_config": os.path.join(ckpt, "config.json"),
+                   "init_checkpoint": ckpt, "batch_size": TRAIN_B,
+                   "max_length": TRAIN_LQ, "phase_name": "trained"}, f)
+    t0 = time.monotonic()
+    sub = subprocess.run(
+        [sys.executable, "-m", "ripor_tpu_torch.cli.main", "train",
+         "--config", conf],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=600)
+    train_wall = time.monotonic() - t0
+    for line in sub.stdout.splitlines():
+        print("cli train:", line)
+    check(sub.returncode == 0, f"train subprocess exit {sub.returncode}: "
+          f"{sub.stderr[-2000:]}")
+    trained = load_params(os.path.join(ws, "checkpoints", "trained"))
+    check(trained["encoder.layers.0.attn.q.weight"].dtype == torch.float32,
+          "8d: the trained checkpoint is not float32")
+    check(not torch.equal(trained["encoder.layers.0.attn.q.weight"].to(
+        torch.bfloat16), world["sd"]["encoder.layers.0.attn.q.weight"].cpu()),
+        "8d: train --config did not move the params")
+    del trained
+    out = run_cli(["retrieve", "--workspace", ws, "--queries", qdir,
+                   "--phase", "trained", "--beam", "1000", "--topk", "1000",
+                   "--run-name", "run_trained.json", "--device", "cuda"],
+                  "trained")
+    run = read_run(os.path.join(ws, "run_trained.json"))
+    check(len(run) == 16 and all(len({d for d, _ in r}) == 1000
+                                 for r in run.values()),
+          "8d: not 16 queries of 1000 distinct docs")
+    check_results("8d run_trained.json", list(run.values()))
+    print("train_cli", json.dumps({
+        "examples": 4 * TRAIN_B, "batch": TRAIN_B, "steps": 4,
+        "train_wall_s": train_wall,
+        "train_timing": json.loads(next(
+            ln for ln in sub.stdout.splitlines()
+            if ln.startswith("train_timing ")).split(" ", 1)[1]),
+        "retrieve_timing": timing_line(out)}))
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1317,7 +1654,9 @@ def main():
     phase6 = {}
     other_paths(world, phase6)
     cli_launches = {}
-    cli_phase(world, cli_launches)
+    with tempfile.TemporaryDirectory(prefix="ripor_ws_") as tmp:
+        cli_phase(world, cli_launches, tmp)
+        train_phase(world, tmp)
 
     # kernel: (TPU kernel it replaces, case of the reported times, path
     # whose run gives the launches)

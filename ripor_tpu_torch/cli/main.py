@@ -1,11 +1,13 @@
-"""CLI entry points of the port: evaluate / retrieve / retrieve-merge / serve.
+"""CLI entry points of the port: evaluate / retrieve / retrieve-merge /
+serve / train.
 
-Port of ripor_tpu/cli/main.py's subcommands of the retrieval path, with
-the same flags and defaults, and one more on ``retrieve`` and ``serve``:
-``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path, and
-without CUDA the default raises). The model runs in bfloat16, its params
-rounded to bf16 as ServeConfig.param_dtype does. The other subcommands of
-the JAX CLI wait for their slices (ROADMAP.md Queue 1).
+Port of ripor_tpu/cli/main.py's subcommands of the retrieval path and of
+``train``, with the same flags and defaults, and one more on ``retrieve``,
+``serve`` and ``train``: ``--device`` (default ``cuda``; ``cpu`` runs the
+plain PyTorch path, and without CUDA the default raises). Retrieval runs
+the model in bfloat16, its params rounded to bf16 as
+ServeConfig.param_dtype does; training runs in float32. The other
+subcommands of the JAX CLI wait for their slices (ROADMAP.md Queue 1).
 
 Usage:
   python -m ripor_tpu_torch.cli.main retrieve --workspace ws --queries qdir \
@@ -13,12 +15,15 @@ Usage:
   python -m ripor_tpu_torch.cli.main evaluate --qrel qrel.json \
       --run ws/run.json --metric mrr_10
   python -m ripor_tpu_torch.cli.main serve --workspace ws  # POST /retrieve
+  python -m ripor_tpu_torch.cli.main train --config cfg.json
+      # -> ws/checkpoints/<phase_name>/params.pt (pipeline/e2e.py's keys)
 """
 from __future__ import annotations
 
 import argparse
 import json
 import time
+from pathlib import Path
 
 
 def cmd_evaluate(args):
@@ -160,6 +165,19 @@ def cmd_serve(args):
     serve_http(engine, host=args.host, port=args.port)
 
 
+def cmd_train(args):
+    """One training phase from a JSON config (pipeline/e2e.py::
+    run_train_from_config); prints a ``train_timing`` JSON line with the
+    wall seconds of the whole job."""
+    from ripor_tpu_torch.pipeline.e2e import run_train_from_config
+    cfg = json.loads(Path(args.config).read_text())
+    t0 = time.monotonic()
+    run_train_from_config(cfg, device=args.device)
+    print("train_timing", json.dumps({
+        "device": args.device, "loss_type": cfg["loss_type"],
+        "seconds": time.monotonic() - t0}), flush=True)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="ripor_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -216,6 +234,12 @@ def main(argv=None):
     prm.add_argument("--nranks", type=int, required=True)
     prm.add_argument("--keep-shards", action="store_true")
     prm.set_defaults(fn=cmd_retrieve_merge)
+
+    pt = sub.add_parser("train", help="train one phase from a JSON config")
+    pt.add_argument("--config", required=True)
+    pt.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu (the plain PyTorch path)")
+    pt.set_defaults(fn=cmd_train)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -9,10 +9,15 @@ this package's state_dict names: ``layer_<i>`` -> ``layers.<i>``, a Dense
 ``init_params`` draws a state_dict with the flax initializers' scales
 (normal with T5's per-projection std, ones for RMSNorm) from a
 ``torch.Generator``.
+
+``train_state_from_jax`` carries a JAX training run across: its step,
+params and optax AdamW moments become the state the port's Trainer
+resumes from.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import dataclasses
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -92,3 +97,48 @@ def init_params(cfg: RiporConfig, generator: torch.Generator, device=None,
             out[name] = (torch.randn(shape, generator=generator,
                                      device=device) * std).to(dtype)
     return out
+
+
+def _as_tree(x) -> Any:
+    """Nested mappings of numpy arrays from a pytree of dataclasses (flax
+    structs), NamedTuples (optax states), tuples, lists and mappings."""
+    if hasattr(x, "_asdict"):
+        x = x._asdict()
+    elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+        x = {f.name: getattr(x, f.name) for f in dataclasses.fields(x)}
+    elif isinstance(x, (tuple, list)):
+        x = {str(i): v for i, v in enumerate(x)}
+    if isinstance(x, Mapping):
+        return {str(k): _as_tree(v) for k, v in x.items()}
+    return np.asarray(x)
+
+
+def _adam_state(tree) -> Mapping:
+    """The node of an optax state tree that holds Adam's count, mu, nu."""
+    if isinstance(tree, Mapping):
+        if {"count", "mu", "nu"} <= set(tree):
+            return tree
+        for v in tree.values():
+            found = _adam_state(v)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_jax(state, cfg: RiporConfig) -> Dict:
+    """The JAX package's TrainState (step, params, the opt_state of
+    optax.chain(clip_by_global_norm, adamw)) -> the port's training state
+    {"step", "params", "opt_state": {"count", "mu", "nu"}} of CPU tensors,
+    the form CheckpointManager.save writes and Trainer resumes from.
+    ``state``: the TrainState itself (its arrays are read through numpy)
+    or the nested dict of numpy arrays an Orbax reader returns for it
+    (train/checkpoint.py: read_orbax_tree)."""
+    tree = _as_tree(state)
+    adam = _adam_state(tree["opt_state"])
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in opt_state")
+    return {"step": int(tree["step"]),
+            "params": params_from_jax(tree["params"], cfg),
+            "opt_state": {"count": int(adam["count"]),
+                          "mu": params_from_jax(adam["mu"], cfg),
+                          "nu": params_from_jax(adam["nu"], cfg)}}

@@ -10,11 +10,14 @@ RMSNorm scale, which stays float32 as the reference keeps it (its product
 is taken in float32 either way). Attention logits and softmax run in
 float32, as the reference's ``preferred_element_type=float32`` einsums do.
 Parameter names mirror the flax tree (models/convert.py maps one onto the
-other). Dropout is not ported: this package runs inference only.
+other). Dropout draws its masks from an explicit ``torch.Generator`` on the
+activations' device (``dropout``); the stacks in models/t5.py hand each
+layer a generator seeded for it.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as Fn
@@ -23,6 +26,24 @@ from torch import nn
 from ripor_tpu_torch.models.config import T5Config
 
 NEG_INF = -1e9  # additive mask value (reference layers.py NEG_INF)
+
+
+def dropout(x, rate: float, deterministic: bool,
+            generator: Optional[torch.Generator]):
+    """flax ``nn.Dropout``: keep each element with probability 1 - rate and
+    scale it by 1 / (1 - rate); the identity when ``deterministic`` or
+    rate is 0. The mask is drawn from ``generator``, a generator on x's
+    device."""
+    if deterministic or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout with deterministic=False needs a generator")
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                         device=x.device))
 
 
 def _empty(shape, dtype, device):
@@ -164,7 +185,8 @@ class FeedForward(nn.Module):
         for p in self.parameters():
             p.requires_grad_(False)
 
-    def forward(self, x):
+    def forward(self, x, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         cfg = self.cfg
         if cfg.is_gated:
             # flax nn.gelu defaults to the tanh approximation
@@ -173,7 +195,7 @@ class FeedForward(nn.Module):
             h = act(self.wi_0(x)) * self.wi_1(x)
         else:
             h = torch.relu(self.wi(x))
-        return self.wo(h)
+        return self.wo(dropout(h, cfg.dropout_rate, deterministic, generator))
 
 
 def padding_bias(mask: torch.Tensor) -> torch.Tensor:

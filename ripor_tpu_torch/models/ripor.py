@@ -5,6 +5,10 @@ reads and scores per-position codebooks [M, K, d] (one tensor, so the
 per-position heads are one gather / matmul over the position axis).
 smtids are pure code arrays [c1..cm] in [0, K); the start token is the
 learned ``start_embed``.
+
+The full forwards take ``deterministic`` and a dropout ``generator`` as
+the flax methods take ``deterministic`` and a dropout rng (models/t5.py
+says how the masks are drawn).
 """
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ from ripor_tpu_torch.models.t5 import CrossKV, Decoder, Encoder
 class RiporModel(nn.Module):
     """Weights are allocated uninitialized on ``device``; fill them with
     ``load_state_dict`` (models/convert.py: ``params_from_jax`` or
-    ``init_params``). Inference only: parameters do not require grad."""
+    ``init_params``). Parameters do not require grad until a trainer
+    (train/trainer.py) turns it on."""
 
     def __init__(self, cfg: RiporConfig, dtype=torch.float32, device=None):
         super().__init__()
@@ -45,9 +50,11 @@ class RiporModel(nn.Module):
 
     # ---- encoder ----
 
-    def encode(self, input_ids, attention_mask):
+    def encode(self, input_ids, attention_mask, deterministic: bool = True,
+               generator: Optional[torch.Generator] = None):
         """Token ids -> encoder hidden states [B, S, d]."""
-        return self.encoder(self.shared(input_ids), attention_mask)
+        return self.encoder(self.shared(input_ids), attention_mask,
+                            deterministic=deterministic, generator=generator)
 
     # ---- decoder-side embedding / scoring ----
 
@@ -59,6 +66,17 @@ class RiporModel(nn.Module):
         books = self.codebooks
         pos = torch.arange(m - 1, device=codes.device)[None, :]
         prev = books[pos, codes[:, :m - 1]]               # [B, m-1, d]
+        start = self.start_embed[None, None, :].expand(b, 1, -1)
+        return torch.cat([start, prev], dim=1)
+
+    def decoder_inputs_from_multi_codes(self, codes: torch.Tensor
+                                        ) -> torch.Tensor:
+        """Multi-id variant: codes [B, m, G] -> shift-right inputs [B, m, d]
+        whose position i > 0 is the mean of the G candidates' embeddings
+        codebooks[i-1, codes[:, i-1, g]]."""
+        b, m, _ = codes.shape
+        pos = torch.arange(m - 1, device=codes.device)[None, :, None]
+        prev = self.codebooks[pos, codes[:, :m - 1, :]].mean(dim=2)
         start = self.start_embed[None, None, :].expand(b, 1, -1)
         return torch.cat([start, prev], dim=1)
 
@@ -81,21 +99,67 @@ class RiporModel(nn.Module):
 
     # ---- full forwards ----
 
-    def forward(self, input_ids, attention_mask, codes):
+    def forward(self, input_ids, attention_mask, codes,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         """Seq2seq forward: decoder hidden states [B, m, d]."""
-        enc = self.encode(input_ids, attention_mask)
+        enc = self.encode(input_ids, attention_mask, deterministic, generator)
+        return self.decode_train(enc, attention_mask, codes, deterministic,
+                                 generator)
+
+    def decode_train(self, enc, enc_mask, codes, deterministic: bool = True,
+                     generator: Optional[torch.Generator] = None):
+        """Teacher-forced decoder hidden states [B, m, d] over the encoder
+        output ``enc`` for target codes [B, m]."""
         dec_in = self.decoder_inputs_from_codes(codes)
-        return self._maybe_scale(self.decoder(dec_in, enc, attention_mask))
+        return self._maybe_scale(self.decoder(dec_in, enc, enc_mask,
+                                              deterministic, generator))
 
-    def forward_logits(self, input_ids, attention_mask, codes):
+    def forward_logits(self, input_ids, attention_mask, codes,
+                       deterministic: bool = True,
+                       generator: Optional[torch.Generator] = None):
         """Teacher-forced logits [B, m, K] (float32)."""
-        return self.lm_logits(self(input_ids, attention_mask, codes))
+        return self.lm_logits(self(input_ids, attention_mask, codes,
+                                   deterministic, generator))
 
-    def rerank_score(self, input_ids, attention_mask, codes):
+    def rerank_score(self, input_ids, attention_mask, codes,
+                     deterministic: bool = True,
+                     generator: Optional[torch.Generator] = None):
         """Sequential dot-product score sum_i <h_i, E[i][c_i]> -> [B]."""
-        hidden = self(input_ids, attention_mask, codes)
+        hidden = self(input_ids, attention_mask, codes, deterministic,
+                      generator)
         return (hidden.float() * self.doc_embeds(codes).float()).sum(
             dim=(-2, -1))
+
+    def rerank_score_prefix(self, input_ids, attention_mask, codes, lengths,
+                            deterministic: bool = True,
+                            generator: Optional[torch.Generator] = None):
+        """rerank_score over only the first ``lengths[b]`` positions of the
+        padded codes [B, m]; lengths [B]. Returns [B]."""
+        hidden = self(input_ids, attention_mask, codes, deterministic,
+                      generator)
+        per_pos = (hidden.float() * self.doc_embeds(codes).float()).sum(-1)
+        pos = torch.arange(codes.shape[1], device=codes.device)[None, :]
+        return (per_pos * (pos < lengths[:, None]).float()).sum(-1)
+
+    def dense_rep(self, input_ids, attention_mask, prefix_codes=None,
+                  deterministic: bool = True,
+                  generator: Optional[torch.Generator] = None):
+        """Dense-encoder mode: the decoder hidden state at the last input
+        position, after an optional smtid prefix [B, p]. Returns [B, d]."""
+        if prefix_codes is None:
+            prefix_codes = torch.zeros(input_ids.shape[0], 1,
+                                       dtype=torch.int32,
+                                       device=input_ids.device)
+        return self(input_ids, attention_mask, prefix_codes, deterministic,
+                    generator)[:, -1, :]
+
+    def dense_rep_all(self, input_ids, attention_mask, codes,
+                      deterministic: bool = True,
+                      generator: Optional[torch.Generator] = None):
+        """All decoder positions' hidden states [B, m, d]."""
+        return self(input_ids, attention_mask, codes, deterministic,
+                    generator)
 
     # ---- decode path (decode/beam.py) ----
 

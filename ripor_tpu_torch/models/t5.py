@@ -11,6 +11,14 @@ the decoder's four beam decode steps:
                                           then K8 (ops/step_attention.py)
 Beams are a first-class axis and cross-attention reads the unexpanded
 encoder K/V [B, S, H, D].
+
+The full-sequence forwards train: with ``deterministic=False`` they apply
+dropout where the flax modules do, and ``T5Config.remat_layers``
+recomputes each layer in the backward pass (``torch.utils.checkpoint``).
+The stack draws one seed a layer from the caller's ``generator`` before
+the layer runs, and the layer draws its masks from a fresh generator
+seeded with it, so a recomputed layer replays its masks exactly
+(checkpoint's own RNG stashing covers only the global generators).
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ripor_tpu_torch.models.config import T5Config
 from ripor_tpu_torch.models.layers import (
@@ -27,6 +36,7 @@ from ripor_tpu_torch.models.layers import (
     RelativePositionBias,
     RMSNorm,
     causal_bias,
+    dropout,
     padding_bias,
 )
 from ripor_tpu_torch.ops.attend_reorder import (row_width,
@@ -39,6 +49,41 @@ from ripor_tpu_torch.ops.step_attention import (step_attention,
 CrossKV = List[Tuple[torch.Tensor, torch.Tensor]]
 
 
+def _dropout_seeds(n: int, rate: float, deterministic: bool,
+                   generator: Optional[torch.Generator]) -> List:
+    """n dropout seeds drawn from ``generator`` (any device), or n Nones
+    where no dropout applies."""
+    if deterministic or rate == 0.0:
+        return [None] * n
+    if generator is None:
+        raise ValueError("deterministic=False needs a dropout generator")
+    return torch.randint(0, 2 ** 62, (n,), generator=generator,
+                         device=generator.device).tolist()
+
+
+def _seeded(seed: Optional[int], device) -> Optional[torch.Generator]:
+    return (None if seed is None
+            else torch.Generator(device=device).manual_seed(seed))
+
+
+def _seeded_dropout(x, rate: float, seed: Optional[int]):
+    return dropout(x, rate, seed is None, _seeded(seed, x.device))
+
+
+def _run_layer(layer, remat: bool, seed: Optional[int], x, *args):
+    """layer(x, *args) with its dropout masks drawn from a generator seeded
+    with ``seed`` (None: deterministic); with ``remat`` the layer's
+    activations are recomputed in the backward pass, the same masks
+    included."""
+    def run(x, *args):
+        return layer(x, *args, deterministic=seed is None,
+                     generator=_seeded(seed, x.device))
+    if remat and torch.is_grad_enabled():
+        return checkpoint(run, x, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return run(x, *args)
+
+
 class EncoderLayer(nn.Module):
     def __init__(self, cfg: T5Config, dtype=torch.float32, device=None):
         super().__init__()
@@ -48,10 +93,14 @@ class EncoderLayer(nn.Module):
         self.attn = Attention(cfg, **kw)
         self.ffn_norm = RMSNorm(cfg.d_model, eps, **kw)
         self.ffn = FeedForward(cfg, **kw)
+        self.rate = cfg.dropout_rate
 
-    def forward(self, x, bias):
-        x = x + self.attn(self.attn_norm(x), bias=bias)
-        return x + self.ffn(self.ffn_norm(x))
+    def forward(self, x, bias, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        def drop(h):
+            return dropout(h, self.rate, deterministic, generator)
+        x = x + drop(self.attn(self.attn_norm(x), bias=bias))
+        return x + drop(self.ffn(self.ffn_norm(x), deterministic, generator))
 
 
 class Encoder(nn.Module):
@@ -64,14 +113,20 @@ class Encoder(nn.Module):
         self.layers = nn.ModuleList(EncoderLayer(cfg, **kw)
                                     for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon, **kw)
+        self.cfg = cfg
 
-    def forward(self, embeds, mask):
+    def forward(self, embeds, mask, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        cfg = self.cfg
         L = embeds.shape[1]
         bias = self.rel_bias(L, L) + padding_bias(mask)
-        x = embeds
-        for layer in self.layers:
-            x = layer(x, bias)
-        return self.final_norm(x)
+        seeds = _dropout_seeds(len(self.layers) + 2, cfg.dropout_rate,
+                               deterministic, generator)
+        x = _seeded_dropout(embeds, cfg.dropout_rate, seeds[0])
+        for layer, seed in zip(self.layers, seeds[1:]):
+            x = _run_layer(layer, cfg.remat_layers, seed, x, bias)
+        return _seeded_dropout(self.final_norm(x), cfg.dropout_rate,
+                               seeds[-1])
 
 
 def _step_cross_attention(q, enc_k, enc_v, enc_bias, dtype):
@@ -102,11 +157,15 @@ class DecoderLayer(nn.Module):
         self.ffn_norm = RMSNorm(cfg.d_model, eps, **kw)
         self.ffn = FeedForward(cfg, **kw)
 
-    def forward(self, x, enc, self_bias, cross_bias):
-        x = x + self.self_attn(self.self_attn_norm(x), bias=self_bias)
-        x = x + self.cross_attn(self.cross_attn_norm(x), kv_input=enc,
-                                bias=cross_bias)
-        return x + self.ffn(self.ffn_norm(x))
+    def forward(self, x, enc, self_bias, cross_bias,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        def drop(h):
+            return dropout(h, self.cfg.dropout_rate, deterministic, generator)
+        x = x + drop(self.self_attn(self.self_attn_norm(x), bias=self_bias))
+        x = x + drop(self.cross_attn(self.cross_attn_norm(x), kv_input=enc,
+                                     bias=cross_bias))
+        return x + drop(self.ffn(self.ffn_norm(x), deterministic, generator))
 
     def cross_kv(self, enc):
         """Cross-attention K/V from the encoder output (once per query)."""
@@ -148,14 +207,20 @@ class Decoder(nn.Module):
                                     for _ in range(cfg.num_decoder_layers))
         self.final_norm = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon, **kw)
 
-    def forward(self, embeds, enc, enc_mask):
+    def forward(self, embeds, enc, enc_mask, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        cfg = self.cfg
         L = embeds.shape[1]
         self_bias = self.rel_bias(L, L) + causal_bias(L, embeds.device)
         cross_bias = padding_bias(enc_mask)
-        x = embeds
-        for layer in self.layers:
-            x = layer(x, enc, self_bias, cross_bias)
-        return self.final_norm(x)
+        seeds = _dropout_seeds(len(self.layers) + 2, cfg.dropout_rate,
+                               deterministic, generator)
+        x = _seeded_dropout(embeds, cfg.dropout_rate, seeds[0])
+        for layer, seed in zip(self.layers, seeds[1:]):
+            x = _run_layer(layer, cfg.remat_layers, seed, x, enc, self_bias,
+                           cross_bias)
+        return _seeded_dropout(self.final_norm(x), cfg.dropout_rate,
+                               seeds[-1])
 
     # ---- decode path ----
 

@@ -1,9 +1,10 @@
 """The retrieval stages of the recipe, over a workspace directory.
 
 Port of ripor_tpu/pipeline/recipe.py's ``Workspace``, ``load_tokenizer``,
-``stage_build_trie``, ``stage_retrieve`` and ``stage_evaluate``; the
-training and index-building stages wait for their slices (ROADMAP.md
-Queue 1 items 8, 10 and 11). The workspace layout is the reference's:
+``stage_build_trie``, ``stage_train``, ``stage_retrieve`` and
+``stage_evaluate``; the index-building stages wait for their slices
+(ROADMAP.md Queue 1 items 8 and 11). The workspace layout is the
+reference's:
 
   workspace/
     tokenizer.json            (WordTokenizer or Unigram tokenizer)
@@ -19,7 +20,7 @@ from __future__ import annotations
 import json
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Iterable, Sequence
 
 import numpy as np
 
@@ -31,6 +32,8 @@ from ripor_tpu_torch.decode.beam import (expand_groups_to_docids,
 from ripor_tpu_torch.decode.quant_gate import ensure_quant_validated
 from ripor_tpu_torch.evaluation.metrics import evaluate_run
 from ripor_tpu_torch.models.config import RiporConfig
+from ripor_tpu_torch.train.checkpoint import load_params, save_params
+from ripor_tpu_torch.train.trainer import TrainConfig, Trainer
 from ripor_tpu_torch.trie.build import DocIdTrie, build_trie
 from ripor_tpu_torch.trie.succinct import succinct_tables, tables_to_torch
 
@@ -72,6 +75,29 @@ def stage_build_trie(ws: Workspace, codes: np.ndarray, K: int) -> DocIdTrie:
     ws.log(f"trie: {trie.num_internal} internal, {trie.num_groups} groups, "
            f"{trie.memory_bytes() / 1e6:.1f} MB")
     return trie
+
+
+def stage_train(ws: Workspace, phase_name: str, model, params,
+                tcfg: TrainConfig, batches: Iterable[Dict], cfg: RiporConfig,
+                rng_seed: int = 0, mesh=None, anchor_params=None
+                ) -> Dict:
+    """Train one phase -> its params (a state_dict of CPU tensors), saved
+    to ``checkpoints/<phase_name>`` (params.pt + config.json). An existing
+    checkpoint there (params.pt, or the JAX package's Orbax tree) is
+    restored instead. ``model``: the RiporModel to train, on its device."""
+    ckpt_dir = ws.path(f"checkpoints/{phase_name}")
+    if (ckpt_dir / "params.pt").exists() or (ckpt_dir / "params").exists():
+        ws.log(f"{phase_name}: restoring existing checkpoint")
+        return load_params(ckpt_dir, cfg)
+    ws.log(f"{phase_name}: training")
+    trainer = Trainer(model, tcfg, params, mesh=mesh,
+                      anchor_params=anchor_params,
+                      log_fn=lambda m, s: ws.log(f"{phase_name} step {s}: "
+                                                 f"loss={m['loss']:.4f}"))
+    state, _ = trainer.run(batches, rng_seed)
+    params = {k: v.detach().cpu() for k, v in state.params.items()}
+    save_params(ckpt_dir, params, cfg)
+    return params
 
 
 def stage_retrieve(ws: Workspace, cfg: RiporConfig, model,

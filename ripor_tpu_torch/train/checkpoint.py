@@ -1,23 +1,30 @@
 """Model checkpoints in PyTorch's idiom, and a reader of the JAX package's.
 
-Counterpart of ripor_tpu/train/checkpoint.py's ``save_params`` and
-``load_params``. A checkpoint directory holds
+Counterpart of ripor_tpu/train/checkpoint.py. A checkpoint directory
+(``save_params``/``load_params``) holds
 
   params.pt      a RiporModel state_dict of CPU tensors (``torch.save``)
   config.json    the RiporConfig (``RiporConfig.to_json``)
+
+``CheckpointManager`` keeps a training run's states, one directory a step
+(``<step>/state.pt``: step, params and the optimizer state, written to a
+temporary file and renamed into place, so a run cut mid-save leaves the
+previous checkpoint the latest), pruned to ``max_to_keep``.
 
 ``load_params`` also reads a checkpoint the JAX package saved: an Orbax
 ``StandardCheckpointer`` tree under ``params/`` (OCDBT key-value store,
 zarr arrays). It reads each leaf through ``tensorstore``, imported only
 there, and maps the tree with ``params_from_jax``. ``params.pt`` is read
-first when both exist. ``resize_codebooks`` and ``CheckpointManager`` wait
-for the training slice (ROADMAP.md Queue 1 item 10).
+first when both exist. ``resize_codebooks`` changes the DocID geometry
+between phases.
 """
 from __future__ import annotations
 
 import json
+import os
+import shutil
 from pathlib import Path
-from typing import Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -26,6 +33,61 @@ from ripor_tpu_torch.models.config import RiporConfig
 from ripor_tpu_torch.models.convert import params_from_jax
 
 PARAMS_FILE = "params.pt"
+STATE_FILE = "state.pt"
+
+
+def _cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, Mapping):
+        return {k: _cpu(v) for k, v in tree.items()}
+    return tree
+
+
+class CheckpointManager:
+    """Training states under ``directory/<step>/state.pt``, the newest
+    ``max_to_keep`` kept."""
+
+    def __init__(self, directory: str | Path, max_to_keep: int = 5):
+        self.directory = Path(directory).absolute()
+        self.directory.mkdir(parents=True, exist_ok=True)
+        self.max_to_keep = max_to_keep
+
+    def _steps(self):
+        return sorted(int(d.name) for d in self.directory.iterdir()
+                      if d.name.isdigit() and (d / STATE_FILE).exists())
+
+    def save(self, step: int, state: Any,
+             config: Optional[RiporConfig] = None) -> None:
+        """``state``: a TrainState (train/trainer.py) or a mapping with its
+        fields (step, params, opt_state); tensors are saved on the CPU."""
+        tree = state if isinstance(state, Mapping) else vars(state)
+        d = self.directory / str(step)
+        d.mkdir(exist_ok=True)
+        tmp = d / (STATE_FILE + ".tmp")
+        torch.save(_cpu(dict(tree)), tmp)
+        os.replace(tmp, d / STATE_FILE)
+        if config is not None:
+            (self.directory / "config.json").write_text(config.to_json())
+        for old in self._steps()[:-self.max_to_keep]:
+            shutil.rmtree(self.directory / str(old))
+
+    def latest_step(self) -> Optional[int]:
+        steps = self._steps()
+        return steps[-1] if steps else None
+
+    def restore(self, step: Optional[int] = None) -> Dict:
+        """The saved state of ``step`` (default: the latest) as a dict of
+        CPU tensors: {"step", "params", "opt_state"}."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {self.directory}")
+        return torch.load(self.directory / str(step) / STATE_FILE,
+                          map_location="cpu", weights_only=True)
+
+    def load_config(self) -> RiporConfig:
+        return RiporConfig.from_json(
+            (self.directory / "config.json").read_text())
 
 
 def save_params(path: str | Path, params: Mapping[str, torch.Tensor],
@@ -79,6 +141,8 @@ def read_orbax_tree(directory: str | Path) -> Dict:
                          "read (the StandardCheckpointer default)")
     tree: Dict = {}
     for entry in meta["tree_metadata"].values():
+        if entry.get("value_metadata", {}).get("skip_deserialize"):
+            continue            # an empty node (optax's EmptyState): no array
         keys = [str(k["key"]) for k in entry["key_metadata"]]
         spec = {"driver": driver,
                 "kvstore": {"driver": "ocdbt",
@@ -92,3 +156,27 @@ def read_orbax_tree(directory: str | Path) -> Dict:
             node = node.setdefault(k, {})
         node[keys[-1]] = np.asarray(arr)
     return tree
+
+
+def resize_codebooks(params: Mapping, new_M: int, new_K: int,
+                     init_scale: float = 1.0, seed: int = 0) -> Dict:
+    """Phase-transition transform: change the DocID geometry between phases
+    (the reference rebuilds nn.Embedding lists and saves a
+    'no_share_checkpoint'; change_customized_embed_layer.py:59-84).
+    Existing rows are kept where they fit; new rows are N(0, init_scale)
+    from numpy's generator at ``seed``, the JAX package's draws. Tensors
+    come back as tensors, arrays as arrays."""
+    rng = np.random.default_rng(seed)
+    out = dict(params)
+    for name in ("codebooks", "output_codebooks"):
+        if name not in params:
+            continue
+        old = np.asarray(params[name])
+        M, K, d = old.shape
+        new = (init_scale * rng.standard_normal((new_M, new_K, d))
+               ).astype(old.dtype)
+        new[:min(M, new_M), :min(K, new_K)] = old[:min(M, new_M),
+                                                  :min(K, new_K)]
+        out[name] = (torch.from_numpy(new)
+                     if isinstance(params[name], torch.Tensor) else new)
+    return out

@@ -34,7 +34,16 @@ def test_no_jax_flax_or_reference_modules_imported():
     mods = _modules()
     assert {"ripor_tpu_torch.ops.megarow",
             "ripor_tpu_torch.ops.step_attention",
-            "ripor_tpu_torch.ops.attend_reorder"} <= set(mods)
+            "ripor_tpu_torch.ops.attend_reorder",
+            "ripor_tpu_torch.train.losses",
+            "ripor_tpu_torch.train.regularizers",
+            "ripor_tpu_torch.train.trainer",
+            "ripor_tpu_torch.train.checkpoint",
+            "ripor_tpu_torch.data.collators",
+            "ripor_tpu_torch.data.loader",
+            "ripor_tpu_torch.utils.observability",
+            "ripor_tpu_torch.core.precision",
+            "ripor_tpu_torch.pipeline.e2e"} <= set(mods)
     r = _run(f"""
         import importlib, sys
         for m in {mods!r}:
