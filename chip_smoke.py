@@ -65,7 +65,22 @@ nonzero and no result line is printed:
      the busy share of one profiled step), and with grad_accum=2 on
      2 x 8; 4 steps against 2 + a checkpoint + a new Trainer + 2; and
      ``train --config`` as a subprocess on phase 7's workspace, whose
-     checkpoint ``retrieve`` then serves with phase 7's checks.
+     checkpoint ``retrieve`` then serves with phase 7's checks;
+  9. the DocID build and dense retrieval, which launch no new kernel:
+     (a) train_rq(M=32, K=256, 25 iterations) on 1,000,000 x 768 rows
+     made on the card and rq_encode with beam 4 (MSE falling at every
+     stage, one stage against the CPU route), and the streamed route on
+     2,000,000 host rows at M=2; (b) DenseEngine over an 8,841,823 x 768
+     corpus (MS MARCO's size) in bf16 and as an Int8Corpus, batches of 1,
+     8 and 64 at topk 1000, held on a 1,000,000-row slice against a plain
+     f32 reference, timed beside the corpus-bytes bound; (c) the CLI on a
+     100,000-doc workspace: index --nranks 2, merge-embs, aq-index,
+     dense-retrieve (host blocks, device corpus, int8), evaluate,
+     hnsw-index + --ann hnsw, serve_http over a DenseEngine, then the
+     aq-index codebooks installed and ``retrieve`` over the RQ-built trie
+     and dev_eval's unconstrained search, each of which must launch K1-K3
+     (counters zeroed just before, read just after); (d) run_e2e at
+     tests/test_pipeline.py::test_e2e_slice's geometry (mrr_10 > 0.5).
 
 Prints the card's name and power limit (nvidia-smi), per-phase lines, then
 a ``{"kernels": [...]}`` line and, last, the contract line
@@ -1614,6 +1629,612 @@ def train_phase(world, tmp):
     torch.cuda.empty_cache()
 
 
+# ---- phase 9: the DocID build and dense retrieval ----
+
+# The full-width run of phase 9. A rehearsal at a tiny size on the CPU
+# passes a smaller copy (every function below reads its sizes from here).
+P9 = dict(
+    device="cuda",
+    rq_rows=1_000_000, rq_dim=F, rq_M=M, rq_K=K, rq_iters=25,
+    rq_centres=4096, rq_noise=0.3, rq_encode_beam=4, sub_rows=20_000,
+    stream_rows=2_000_000, stream_batch=1_000_000, stream_M=2,
+    stream_iters=3,
+    corpus_rows=8_841_823,          # MS MARCO passages
+    check_rows=1_000_000, dense_batches=(1, 8, 64), dense_topk=1000,
+    dense_reps=5,
+    cli_docs=100_000, cli_doc_len=32, cli_M=M, cli_K=K, cli_beam=1000,
+    cli_topk=100, dev_eval_beams=100,
+)
+
+
+def peak_gb(dev):
+    import torch
+    if torch.device(dev).type != "cuda":
+        return "not measured"
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def reset_peak(dev):
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def greedy_mse(x, books, block=262_144):
+    """Mean squared residual norm after each stage of ``books`` [M, K, d]
+    (numpy), the greedy residuals train_rq fits: a list of M + 1 numbers,
+    the first that of x itself. Computed on x's device in blocks."""
+    import torch
+    from ripor_tpu_torch.quantize import assign_codes
+    bt = torch.as_tensor(books, device=x.device)
+    sums = np.zeros(len(books) + 1)
+    for s in range(0, x.shape[0], block):
+        r = x[s:s + block].to(torch.float32).clone()
+        sums[0] += float(torch.sum(r * r))
+        for m in range(len(books)):
+            r -= bt[m][assign_codes(r, bt[m])]
+            sums[m + 1] += float(torch.sum(r * r))
+    return list(sums / x.shape[0])
+
+
+def gaussian_rows(n, d, centres, noise, g, dev):
+    """[n, d] float32 rows on ``dev`` around ``centres`` random centres
+    (data with cluster structure for k-means), drawn from ``g``."""
+    import torch
+    c = torch.randn(centres, d, generator=g, device=dev)
+    a = torch.randint(0, centres, (n,), generator=g, device=dev)
+    x = c[a]
+    x += noise * torch.randn(n, d, generator=g, device=dev)
+    return x
+
+
+def docid_build(sz):
+    """Phase 9 (a): RQ DocIDs at full width. train_rq(M=32, K=256, 25
+    k-means iterations) on 1,000,000 x 768 float32 rows made on the card
+    (a mixture of 4096 Gaussian centres), in device memory; rq_encode with
+    beam 4. Checks: the greedy reconstruction MSE falls at every stage;
+    re-encoding a 20,000-row slice gives the same codes, and rq_decode of
+    them on the host equals their reconstruction on the card; one k-means
+    stage on a 20,000-row subset, on the card and on the CPU from the same
+    k-means++ centroids, agrees (assignments >= 99.9 % equal, centroids
+    within 1e-4 of their scale); the share of unique smtids. Then the
+    streamed route (batch = 1,000,000) on 2,000,000 host rows at M=2 with
+    3 iterations (a cut of M and iterations: the route, not the fit)."""
+    import torch
+    from ripor_tpu_torch.quantize import rq_decode, rq_encode, train_rq
+    from ripor_tpu_torch.quantize.kmeans import _kmeanspp_init, _lloyd_step
+    from ripor_tpu_torch.quantize.rq import _rq_beam_encode
+
+    dev = sz["device"]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = gaussian_rows(sz["rq_rows"], sz["rq_dim"], sz["rq_centres"],
+                      sz["rq_noise"], g, dev)
+    reset_peak(dev)
+    t0 = time.monotonic()
+    books = train_rq(x, M=sz["rq_M"], K=sz["rq_K"],
+                     kmeans_iters=sz["rq_iters"],
+                     generator=torch.Generator(device=dev).manual_seed(SEED),
+                     device=dev)
+    sync(dev)
+    train_s = time.monotonic() - t0
+    train_peak = peak_gb(dev)
+    reset_peak(dev)
+    t0 = time.monotonic()
+    codes = rq_encode(books, x, beam=sz["rq_encode_beam"], device=dev)
+    encode_s = time.monotonic() - t0
+    encode_peak = peak_gb(dev)
+    mse = greedy_mse(x, books.codebooks)
+    check(all(a > b for a, b in zip(mse, mse[1:])),
+          f"rq: greedy MSE does not fall at every stage: {mse}")
+    n20 = min(sz["sub_rows"], sz["rq_rows"])
+    c20, _ = _rq_beam_encode(
+        x[:n20], torch.as_tensor(books.codebooks, device=dev),
+        sz["rq_encode_beam"])
+    check(np.array_equal(c20.cpu().numpy(), codes[:n20]),
+          "rq: re-encoding a slice gives other codes")
+    # rq_decode on the host against the same reconstruction on the card
+    bt = torch.as_tensor(books.codebooks, device=dev)
+    on_card = bt[torch.arange(bt.shape[0], device=dev)[None], c20.long()]
+    on_card = on_card.sum(dim=1).cpu().numpy()
+    recon = rq_decode(books, codes[:n20])
+    dec_diff = float(np.abs(recon - on_card).max() / np.abs(recon).max())
+    check(dec_diff <= 1e-5, f"rq: rq_decode vs the card's sums {dec_diff}")
+    del bt, on_card
+    uniq = int(torch.unique(torch.as_tensor(codes, device=dev),
+                            dim=0).shape[0])
+
+    # one stage, card against CPU, from the same k-means++ centroids
+    sub = x[:n20].contiguous()
+    c0 = _kmeanspp_init(sub, sz["rq_K"], g)
+    cd, cc, sub_c = c0, c0.cpu(), sub.cpu()
+    gd = torch.Generator(device=dev).manual_seed(SEED)
+    gc = torch.Generator().manual_seed(SEED)
+    empty = 0
+    for _ in range(sz["rq_iters"]):
+        cd, ad = _lloyd_step(sub, cd, gd)
+        cc, ac = _lloyd_step(sub_c, cc, gc)
+        empty += int((torch.bincount(ac, minlength=sz["rq_K"]) == 0).sum())
+    agree = float((ad.cpu() == ac).float().mean())
+    cdiff = float((cd.cpu() - cc).abs().max() / cc.abs().max())
+    check(empty == 0, f"rq stage vs CPU: {empty} empty clusters re-seeded "
+          "(the two routes' draws differ)")
+    check(agree >= 0.999, f"rq stage vs CPU: assignments {agree} equal")
+    check(cdiff <= 1e-4, f"rq stage vs CPU: centroids {cdiff} apart")
+    print("docid_build", json.dumps({
+        "rows": sz["rq_rows"], "dim": sz["rq_dim"], "M": sz["rq_M"],
+        "K": sz["rq_K"], "kmeans_iters": sz["rq_iters"],
+        "train_s": train_s, "s_per_stage": train_s / sz["rq_M"],
+        "train_peak_gb": train_peak, "encode_beam": sz["rq_encode_beam"],
+        "encode_s": encode_s, "encode_peak_gb": encode_peak,
+        "greedy_mse_by_stage": mse, "unique_smtids": uniq,
+        "unique_share": uniq / sz["rq_rows"],
+        "decode_rel_diff": dec_diff,
+        "slice_vs_cpu": {"rows": n20, "assign_equal": agree,
+                         "centroid_rel_diff": cdiff}}))
+    del x, sub, sub_c, c20
+    reset_peak(dev)
+
+    # the streamed route: host rows, device batches
+    xs = gaussian_rows(sz["stream_rows"], sz["rq_dim"], sz["rq_centres"],
+                       sz["rq_noise"], g, dev).cpu().numpy()
+    t0 = time.monotonic()
+    sbooks = train_rq(xs, M=sz["stream_M"], K=sz["rq_K"],
+                      kmeans_iters=sz["stream_iters"],
+                      generator=torch.Generator(device=dev).manual_seed(SEED),
+                      batch=sz["stream_batch"], device=dev)
+    stream_s = time.monotonic() - t0
+    smse = greedy_mse(torch.as_tensor(xs[:sz["stream_batch"]], device=dev),
+                      sbooks.codebooks)
+    check(all(a > b for a, b in zip(smse, smse[1:])),
+          f"rq streamed: MSE does not fall at every stage: {smse}")
+    print("docid_build_streamed", json.dumps({
+        "rows": sz["stream_rows"], "batch": sz["stream_batch"],
+        "M": sz["stream_M"], "kmeans_iters": sz["stream_iters"],
+        "seconds": stream_s, "s_per_stage": stream_s / sz["stream_M"],
+        "greedy_mse_first_batch": smse, "peak_gb": peak_gb(dev)}))
+    del xs
+    return codes
+
+
+def sync(dev):
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def topk_sets_agree(s_got, i_got, s_ref, i_ref, rtol=1e-5):
+    """Per query, the same indices apart from ties: the index sets agree
+    outside the docs whose reference score is within ``rtol`` of the
+    k-th score, and the scores agree within ``rtol``."""
+    worst = 0.0
+    for sg, ig, sr, ir in zip(s_got, i_got, s_ref, i_ref):
+        kth = sr[-1]
+        tol = rtol * max(1.0, abs(kth))
+        firm_ref = {int(j) for j, v in zip(ir, sr) if v > kth + tol}
+        if not firm_ref <= set(int(j) for j in ig):
+            return False, worst
+        worst = max(worst, float(np.max(np.abs(sg - sr)
+                                         / np.maximum(1.0, np.abs(sr)))))
+    return worst <= rtol, worst
+
+
+def dense_serving(world, sz):
+    """Phase 9 (b): DenseEngine at MS MARCO scale. An 8,841,823 x 768
+    corpus in bf16 (13.58 GB) made on the card from the seed, and its
+    Int8Corpus; phase 4's ripor_base model (random bf16 weights) as the
+    query encoder; topk 1000 in batches of 1, 8 and 64. Checks on a
+    1,000,000-row slice against a plain f32 reference (f32 products of
+    the same bf16 values, TF32 off): the bf16 route's indices equal apart
+    from ties, scores within 1e-5; int8 at tests/test_eval.py's bar (top-1
+    equal, top-10 overlap >= 0.9), its top-1 allowed to differ only
+    where the int8 error bound covers the lead of the reference's best.
+    Every answer finite and non-increasing.
+    Times: ms per batch and q/s (median of 5) of retrieve_batch and of
+    dense_topk alone, beside the bound (the corpus bytes over 3.35 TB/s);
+    the busy share of one profiled B=64 batch; peak memory."""
+    import torch
+    from ripor_tpu_torch.data.tokenizer import tokenize_queries
+    from ripor_tpu_torch.evaluation.retriever import (Int8Corpus,
+                                                      dense_topk,
+                                                      device_corpus)
+    from ripor_tpu_torch.quantize.kmeans import exact_f32
+    from ripor_tpu_torch.serve import DenseEngine, ServeConfig
+
+    dev = sz["device"]
+    n, d, k = sz["corpus_rows"], world["cfg"].t5.d_model, sz["dense_topk"]
+    reset_peak(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    t0 = time.monotonic()
+    corpus = torch.empty(n, d, dtype=torch.bfloat16, device=dev)
+    for s in range(0, n, 1_000_000):
+        corpus[s:s + 1_000_000] = torch.randn(
+            min(1_000_000, n - s), d, generator=g, device=dev)
+    c8 = device_corpus(corpus, dtype=torch.int8)
+    sync(dev)
+    make_s = time.monotonic() - t0
+    docids = [f"p{i}" for i in range(n)]
+    rng = np.random.default_rng(SEED + 9)
+    queries = [" ".join(rng.choice(world["words"], rng.integers(3, 12)))
+               for _ in range(max(sz["dense_batches"]))]
+    for tag, corp in (("bf16", corpus), ("int8", c8)):
+        cbytes = (nbytes(corp) if isinstance(corp, torch.Tensor)
+                  else nbytes(corp.codes, corp.scale))
+        eng = DenseEngine(world["cfg"], world["sd"], world["tok"], corp,
+                          docids, ServeConfig(topk=k, batch_sizes=tuple(
+                              sz["dense_batches"])), device=dev)
+        recs = []
+        for b in sz["dense_batches"]:
+            qs = queries[:b]
+            ids, mask = tokenize_queries(world["tok"], qs, 64)
+            with torch.inference_mode():
+                reps = eng._model.dense_rep(
+                    torch.as_tensor(ids, device=dev),
+                    torch.as_tensor(mask, device=dev)).float().cpu().numpy()
+            eng_t, scan_t = [], []
+            for _ in range(sz["dense_reps"]):
+                t0 = time.monotonic()
+                res = eng.retrieve_batch(qs)
+                eng_t.append(time.monotonic() - t0)
+                t0 = time.monotonic()
+                dense_topk(reps, corp, k)
+                scan_t.append(time.monotonic() - t0)
+            check_dense(tag, res, k)
+            eng_ms, scan_ms = (float(np.median(t)) * 1e3
+                               for t in (eng_t, scan_t))
+            recs.append({"batch": b, "engine_ms": eng_ms,
+                         "engine_qps": b / eng_ms * 1e3,
+                         "engine_ms_runs": [t * 1e3 for t in eng_t],
+                         "scan_ms": scan_ms, "scan_qps": b / scan_ms * 1e3,
+                         "scan_ms_runs": [t * 1e3 for t in scan_t]})
+            if b == max(sz["dense_batches"]):
+                if tag == "bf16":
+                    eng_reps = reps
+                if dev == "cuda":
+                    where_time_goes(f"dense {tag} B={b}",
+                                    lambda: eng.retrieve_batch(qs),
+                                    eng_ms / 1e3,
+                                    shape={"batch": b, "docs": n,
+                                           "topk": k})
+        print("dense_serving", json.dumps({
+            "corpus": tag, "docs": n, "dim": d, "topk": k,
+            "corpus_gb": cbytes / 1e9,
+            "bound_ms": cbytes / HBM_BYTES_PER_S * 1e3,
+            "batches": recs}))
+        del eng
+    # the 1M-row slice against a plain f32 reference
+    m = min(sz["check_rows"], n)
+    q = torch.as_tensor(eng_reps, device=dev).to(torch.bfloat16)
+    with exact_f32():
+        ref = q.float() @ corpus[:m].float().T
+    rs, ri = (t.cpu().numpy() for t in torch.topk(ref, k, dim=1))
+    del ref
+    s16, i16 = dense_topk(eng_reps, corpus[:m], k)
+    ok, worst = topk_sets_agree(s16, i16, rs, ri)
+    check(ok, f"dense bf16 vs f32 reference: sets or scores apart ({worst})")
+    s8, i8 = dense_topk(eng_reps, Int8Corpus(c8.codes[:m], c8.scale[:m]), k)
+    top1 = float(np.mean(i8[:, 0] == ri[:, 0]))
+    overlap = float(np.mean([len(set(a[:10]) & set(b[:10])) / 10.0
+                             for a, b in zip(i8, ri)]))
+    # where the int8 pick is not the reference's best, the best may lead
+    # it by no more than the two docs' int8 error bounds: rint moves each
+    # element by at most scale / 2, a score by at most sum|q| * scale / 2
+    qabs = q.float().abs().sum(dim=1).cpu().numpy()
+    scale = c8.scale[:m].cpu().numpy()
+    lead = []
+    for b in np.flatnonzero(i8[:, 0] != ri[:, 0]):
+        a, r = int(i8[b, 0]), int(ri[b, 0])
+        with exact_f32():
+            true_a = float(q[b].float() @ corpus[a].float())
+        lead.append(float((rs[b, 0] - true_a) / (
+            qabs[b] * (scale[a] + scale[r]) / 2 * (1 + 1e-5))))
+    print("dense_check", json.dumps({
+        "rows": m, "queries": len(eng_reps), "bf16_max_rel_score_diff": worst,
+        "int8_top1_equal": top1, "int8_top10_overlap": overlap,
+        "int8_top1_lead_over_error_bound": lead,
+        "make_corpus_s": make_s, "peak_gb": peak_gb(dev)}))
+    check(all(x <= 1.0 for x in lead),
+          f"dense int8: a top-1 pick beyond its error bound ({lead})")
+    check(overlap >= 0.9, f"dense int8: top-10 overlap {overlap}")
+    del corpus, c8
+    reset_peak(dev)
+
+
+def check_dense(tag, res, k):
+    for r in res:
+        s = [v for _, v in r]
+        check(len(r) == k, f"dense {tag}: {len(r)} results, not {k}")
+        check(all(np.isfinite(s)), f"dense {tag}: non-finite score")
+        check(all(a >= b for a, b in zip(s, s[1:])),
+              f"dense {tag}: scores increase")
+
+
+def docid_cli_phase(world, launches, tmp, sz):
+    """Phase 9 (c): the DocID build and dense retrieval through the CLI,
+    on a new workspace beside phase 7's: its params.pt (phase 4's model),
+    its WordTokenizer and its 16 queries, and a 100,000-doc corpus of
+    phase 7's words (8-20 words a doc, encoded at 32 positions: a cut of
+    the 128 default; a fifth of them repeat another doc's text, so RQ
+    groups hold several docs). ``index --nranks 2`` (both ranks) + ``merge-embs``,
+    ``aq-index --M 32 --K 256``; ``dense-retrieve`` on host blocks, with
+    ``--device-corpus`` (equal apart from ties: the reps are bf16-exact)
+    and ``--corpus-quant int8`` (scores within tests/test_eval.py's bar of
+    the exact ones); ``evaluate`` on a constructed qrel; ``hnsw-index``
+    (16 links, ef_construct 64: a cut of build time) + ``--ann hnsw``
+    (ef_search 256; recall@100 against flat); ``serve_http`` over a
+    DenseEngine (POST /retrieve equal to retrieve_batch). Last,
+    install_codebooks of the aq-index codebooks into the model and
+    ``retrieve`` at beam = topk = 1000 over the RQ-built
+    docid_to_smtid.json (groups hold several docs), with phase 4's checks,
+    then dev_eval's unconstrained search over the same model: K1-K3 must
+    launch in each (counters zeroed just before, read just after)."""
+    import http.client
+    import os
+    import shutil
+
+    import torch
+    from ripor_tpu_torch.cli.main import _bf16_model
+    from ripor_tpu_torch.data.datasets import (Collection,
+                                               load_docid_to_smtid)
+    from ripor_tpu_torch.data.emb_store import open_mmap
+    from ripor_tpu_torch.data.tokenizer import tokenize_queries
+    from ripor_tpu_torch.evaluation.dev_eval import dev_eval
+    from ripor_tpu_torch.evaluation.retriever import device_corpus
+    from ripor_tpu_torch.models import install_codebooks
+    from ripor_tpu_torch.ops import KERNEL_LAUNCHES
+    from ripor_tpu_torch.pipeline import load_tokenizer
+    from ripor_tpu_torch.serve import DenseEngine, ServeConfig, serve_http
+    from ripor_tpu_torch.train import load_params, save_params
+    from ripor_tpu_torch.trie import DocIdTrie
+
+    dev = sz["device"]
+    src = os.path.join(tmp, "ws")
+    ws = os.path.join(tmp, "ws9")
+    os.makedirs(os.path.join(ws, "checkpoints"))
+    shutil.copytree(os.path.join(src, "checkpoints", "final"),
+                    os.path.join(ws, "checkpoints", "final"))
+    shutil.copy(os.path.join(src, "tokenizer.json"), ws)
+    qdir = os.path.join(tmp, "queries")
+    qids = Collection(qdir).ids
+    rng = np.random.default_rng(SEED + 9)
+    docs = os.path.join(tmp, "docs9")
+    os.makedirs(docs)
+    # a fifth of the docs repeat another doc's text (as MS MARCO holds
+    # duplicate passages): equal reps, equal smtids, groups of several docs
+    texts = [" ".join(rng.choice(world["words"], rng.integers(8, 21)))
+             for _ in range(sz["cli_docs"] * 4 // 5)]
+    texts += [texts[j] for j in rng.integers(0, len(texts),
+                                             sz["cli_docs"] - len(texts))]
+    with open(os.path.join(docs, "raw.tsv"), "w") as f:
+        f.writelines(f"p{i}\t{t}\n" for i, t in enumerate(texts))
+    mmap, aq = os.path.join(tmp, "mmap9"), os.path.join(tmp, "aq9")
+    devf = ["--device", dev]
+    steps = {}
+
+    def timed(tag, argv):
+        t0 = time.monotonic()
+        out = run_cli(argv, tag)
+        steps[tag] = time.monotonic() - t0
+        return out
+
+    for rank in (0, 1):
+        timed(f"index rank {rank}",
+              ["index", "--workspace", ws, "--docs", docs, "--rank",
+               str(rank), "--nranks", "2", "--max-length",
+               str(sz["cli_doc_len"]), *devf])
+    timed("merge-embs", ["merge-embs", "--emb-dir",
+                         os.path.join(ws, "embs"), "--mmap-dir", mmap])
+    timed("aq-index", ["aq-index", "--mmap-dir", mmap, "--out-dir", aq,
+                       "--M", str(sz["cli_M"]), "--K", str(sz["cli_K"]),
+                       *devf])
+    check(sorted(os.listdir(aq)) == ["codebooks.npz.npy",
+                                     "docid_to_smtid.json"],
+          f"aq-index wrote {sorted(os.listdir(aq))}")
+    embs, docids = open_mmap(mmap)
+    check(embs.shape == (sz["cli_docs"], world["cfg"].t5.d_model),
+          f"merge-embs: {embs.shape}")
+
+    base = ["dense-retrieve", "--workspace", ws, "--queries", qdir,
+            "--topk", str(sz["cli_topk"]), *devf]
+    runs = {}
+    for tag, extra in (("host", ["--mmap-dir", mmap]),
+                       ("device", ["--mmap-dir", mmap, "--device-corpus"]),
+                       ("int8", ["--mmap-dir", mmap, "--device-corpus",
+                                 "--corpus-quant", "int8"])):
+        out = os.path.join(ws, f"run_dense_{tag}.json")
+        timed(f"dense-retrieve {tag}", base + extra + ["--out", out])
+        runs[tag] = read_run(out)
+    tok = load_tokenizer(os.path.join(ws, "tokenizer.json"))
+    params = load_params(os.path.join(ws, "checkpoints", "final"))
+    model = _bf16_model(world["cfg"], params, dev)
+    ids, mask = tokenize_queries(tok, Collection(qdir).texts, 64)
+    with torch.inference_mode():
+        q = model.dense_rep(torch.as_tensor(ids, device=dev),
+                            torch.as_tensor(mask, device=dev)).float()
+        exact = (q.double() @ torch.tensor(np.asarray(embs), device=dev)
+                 .double().T).cpu().numpy()
+    col = {d: i for i, d in enumerate(docids)}
+    worst8 = 0.0
+    for qi, qid in enumerate(qids):
+        top = np.argsort(-exact[qi], kind="stable")[:sz["cli_topk"]]
+        for tag in ("host", "device"):
+            got = runs[tag][qid]
+            s_got = np.array([v for _, v in got])
+            ok, worst = topk_sets_agree(
+                s_got[None], np.array([col[d] for d, _ in got])[None],
+                exact[qi, top][None], top[None])
+            check(ok, f"dense-retrieve {tag}: {qid} apart from the exact "
+                  f"top-{sz['cli_topk']} ({worst})")
+        for d_, v in runs["int8"][qid]:
+            e = exact[qi, col[d_]]
+            worst8 = max(worst8, abs(v - e) / (0.05 + 0.05 * abs(e)))
+    check(worst8 <= 1.0, f"dense-retrieve int8: scores beyond rtol 0.05 / "
+          f"atol 0.05 of the exact ones ({worst8})")
+
+    qrel, ranks = mrr_qrel([runs["host"][q] for q in qids], qids)
+    qrel_path = os.path.join(tmp, "qrel9.json")
+    with open(qrel_path, "w") as f:
+        json.dump(qrel, f)
+    got = json.loads(run_cli(["evaluate", "--qrel", qrel_path, "--run",
+                              os.path.join(ws, "run_dense_host.json"),
+                              "--metric", "mrr_10"], "evaluate dense"))
+    expect = sum(1.0 / r for r in ranks) / len(ranks)
+    check(got == {"mrr_10": expect}, f"evaluate dense: {got} vs {expect}")
+
+    hnsw = os.path.join(tmp, "hnsw9")
+    # a lighter graph than the defaults (32 links, ef_construct 128, whose
+    # build took 106 s of the card machine's 8 cores): a cut of build time
+    hout = timed("hnsw-index", ["hnsw-index", "--mmap-dir", mmap,
+                                "--index-dir", hnsw, "--num-links", "16",
+                                "--ef-construct", "64"])
+    out = os.path.join(ws, "run_dense_hnsw.json")
+    timed("dense-retrieve hnsw", base + ["--ann", "hnsw", "--index-dir",
+                                         hnsw, "--ef-search", "256",
+                                         "--out", out])
+    hrun = read_run(out)
+    recall = float(np.mean([
+        len({d for d, _ in hrun[q]} & {d for d, _ in runs["host"][q]})
+        / sz["cli_topk"] for q in qids]))
+    check(recall >= 0.5, f"hnsw recall@{sz['cli_topk']} vs flat {recall}")
+
+    # serve --mode dense: the engine cmd_serve builds, over HTTP
+    eng = DenseEngine(world["cfg"], params, tok,
+                      device_corpus(np.asarray(embs), device=dev), docids,
+                      ServeConfig(topk=sz["cli_topk"], batch_sizes=(8,)),
+                      device=dev)
+    texts = Collection(qdir).texts[:8]
+    want = eng.retrieve_batch(texts)
+    server = serve_http(eng, port=0, block=False)
+    host, port = server.server_address
+    try:
+        conn = http.client.HTTPConnection(host, port, timeout=600)
+        conn.request("POST", "/retrieve", body=json.dumps({"queries": texts}),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        body = json.loads(resp.read())
+        check(resp.status == 200, f"dense POST /retrieve: {resp.status}")
+        got = [[tuple(x) for x in r] for r in body["results"]]
+    finally:
+        server.shutdown()
+        server.server_close()
+        eng.stop()
+    check_same_run("dense HTTP vs retrieve_batch",
+                   dict(zip(qids, got)), dict(zip(qids, want)))
+    del eng
+    print("docid_cli", json.dumps({
+        "docs": sz["cli_docs"], "doc_positions": sz["cli_doc_len"],
+        "queries": len(qids), "seconds": steps,
+        "int8_worst_over_bar": worst8,
+        "hnsw_recall_vs_flat": recall, "hnsw_native": "native=True" in hout,
+        "evaluate_mrr_10": expect}))
+
+    # the RQ DocIDs into the model, and retrieval over their trie
+    books = np.load(os.path.join(aq, "codebooks.npz.npy"))
+    rq_ckpt = os.path.join(ws, "checkpoints", "rq")
+    save_params(rq_ckpt, install_codebooks(params, books), world["cfg"])
+    shutil.copy(os.path.join(aq, "docid_to_smtid.json"), ws)
+    for k in KERNEL_LAUNCHES:
+        KERNEL_LAUNCHES[k] = 0
+    out = timed("retrieve rq", [
+        "retrieve", "--workspace", ws, "--queries", qdir, "--phase", "rq",
+        "--beam", str(sz["cli_beam"]), "--topk", str(sz["cli_beam"]),
+        "--run-name", "run_rq.json", *devf])
+    counts = dict(KERNEL_LAUNCHES)
+    trie = DocIdTrie.load(os.path.join(ws, "trie.npz"))
+    check(trie.num_groups < sz["cli_docs"],
+          f"RQ trie: {trie.num_groups} groups for {sz['cli_docs']} docs")
+    run = read_run(os.path.join(ws, "run_rq.json"))
+    check(list(run) == qids, "retrieve rq: qids")
+    if dev == "cuda":
+        check_results("retrieve rq", list(run.values()))
+        for k in MEGAROW_KERNELS:
+            check(counts[k] > 0, f"retrieve rq: kernel {k} never launched")
+    _, rq_codes = load_docid_to_smtid(os.path.join(ws,
+                                                   "docid_to_smtid.json"))
+    model = install_codebooks(model, books)
+    for k in KERNEL_LAUNCHES:
+        KERNEL_LAUNCHES[k] = 0
+    ids, mask = tokenize_queries(tok, Collection(qdir).texts[:B], 64)
+    t0 = time.monotonic()
+    dev_metrics = dev_eval(world["cfg"], model, [(ids, mask)],
+                           rq_codes[:B], num_beams=sz["dev_eval_beams"])
+    dev_s = time.monotonic() - t0
+    dcounts = dict(KERNEL_LAUNCHES)
+    if dev == "cuda":
+        for k in MEGAROW_KERNELS:
+            check(dcounts[k] > 0, f"dev_eval: kernel {k} never launched")
+            launches[k] = counts[k] + dcounts[k]
+    print("docid_retrieve", json.dumps({
+        "beam": sz["cli_beam"], "topk": sz["cli_beam"], "docs": sz["cli_docs"],
+        "trie_groups": int(trie.num_groups),
+        "trie_nodes": int(trie.num_internal),
+        "max_docs_in_a_group": int(np.max(np.diff(trie.group_doc_offsets))),
+        "retrieve_timing": timing_line(out),
+        "launches": {k: counts[k] for k in MEGAROW_KERNELS},
+        "dev_eval": {"queries": B, "beams": sz["dev_eval_beams"],
+                     "seconds": dev_s, **dev_metrics,
+                     "launches": {k: dcounts[k] for k in MEGAROW_KERNELS}}}))
+    del model, params
+    reset_peak(dev)
+
+
+def e2e_phase(tmp, sz):
+    """Phase 9 (d): ``run_e2e`` at tests/test_pipeline.py::test_e2e_slice's
+    geometry (40 docs, 12 queries, M=4, K=16, 60 epochs) on the card, a
+    WordTokenizer written first (the card's machine has no tokenizers
+    package): mrr_10 and recall_10 above 0.5, the JAX test's bar."""
+    import os
+    from ripor_tpu_torch.data.tokenizer import WordTokenizer
+    from ripor_tpu_torch.pipeline.e2e import run_e2e
+
+    words = ["alpha", "bravo", "charlie", "delta", "echo", "foxtrot",
+             "golf", "hotel", "india", "juliet", "kilo", "lima", "mike",
+             "november"]
+    rng = np.random.default_rng(0)
+    root = os.path.join(tmp, "e2e")
+    docs_dir, queries_dir = (os.path.join(root, n) for n in ("docs",
+                                                             "queries"))
+    os.makedirs(docs_dir)
+    os.makedirs(queries_dir)
+    texts = [" ".join(rng.choice(words, 6)) + f" topic{i}" for i in range(40)]
+    with open(os.path.join(docs_dir, "raw.tsv"), "w") as f:
+        f.writelines(f"d{i}\t{t}\n" for i, t in enumerate(texts))
+    qrel = {}
+    with open(os.path.join(queries_dir, "raw.tsv"), "w") as f:
+        for qi in range(12):
+            di = qi * 3
+            f.write(f"q{qi}\tfind topic{di} {texts[di].split()[0]}\n")
+            qrel[f"q{qi}"] = {f"d{di}": 1}
+    with open(os.path.join(root, "qrel.json"), "w") as f:
+        json.dump(qrel, f)
+    ws = os.path.join(root, "ws")
+    os.makedirs(ws)
+    WordTokenizer.train(texts + ["find"], vocab_size=300).save(
+        os.path.join(ws, "tokenizer.json"))
+    t0 = time.monotonic()
+    metrics = run_e2e(workspace=ws, docs_dir=docs_dir,
+                      queries_dir=queries_dir,
+                      qrel_path=os.path.join(root, "qrel.json"), M=4, K=16,
+                      vocab_size=300, s2s_epochs=60, learning_rate=2e-3,
+                      batch_size=12, num_beams=5, topk=20,
+                      device=sz["device"])
+    print("e2e", json.dumps({"seconds": time.monotonic() - t0, **metrics}))
+    check(metrics["mrr_10"] > 0.5 and metrics["recall_10"] > 0.5,
+          f"e2e: {metrics}, the JAX test's bar is 0.5")
+
+
+def docid_phase(world, launches, tmp, sz=P9):
+    """Phase 9: (a) docid_build, (b) dense_serving, (c) docid_cli_phase,
+    (d) e2e_phase. Adds (c)'s launches of K1-K3 to ``launches``."""
+    t0 = time.monotonic()
+    docid_build(sz)
+    dense_serving(world, sz)
+    docid_cli_phase(world, launches, tmp, sz)
+    e2e_phase(tmp, sz)
+    print("phase9_s", time.monotonic() - t0)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1657,6 +2278,8 @@ def main():
     with tempfile.TemporaryDirectory(prefix="ripor_ws_") as tmp:
         cli_phase(world, cli_launches, tmp)
         train_phase(world, tmp)
+        phase9 = {}
+        docid_phase(world, phase9, tmp)
 
     # kernel: (TPU kernel it replaces, case of the reported times, path
     # whose run gives the launches)
@@ -1690,7 +2313,8 @@ def main():
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"], "case": case})
+            "library_ms": main["library_ms"], "case": case,
+            "launches_rq_trie": phase9.get(name, 0)})
     print("total_s", time.monotonic() - t_all)
     print(smi.splitlines()[0])
     print(json.dumps({"kernels": kernels}))

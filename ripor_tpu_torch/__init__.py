@@ -11,9 +11,13 @@ down — cli/ (retrieve, retrieve-merge, evaluate, serve), pipeline/recipe
 evaluation/ (trec metrics), native_ext (the C++ host library), models/
 (T5 + RIPOR head), trie/, decode/ (beam search on its four paths, the
 quant gate), ops/ (the int8-weight FFN and the eight hand-written Hopper
-kernels, sources in csrc/) and serve/ (RetrievalEngine, HTTP). Entry
-points run on "cuda" unless the caller passes ``device="cpu"``; on the
-CPU every kernel wrapper runs its plain PyTorch version.
+kernels, sources in csrc/) and serve/ (RetrievalEngine, HTTP); training
+(train/, data/collators, CLI train); the DocID build and dense retrieval
+(quantize/, data/emb_store, evaluation/{retriever,dev_eval,hnsw,bm25},
+DenseEngine, pipeline/e2e.run_e2e, CLI index / merge-embs / aq-index /
+hnsw-index / dense-retrieve / e2e). Entry points run on "cuda" unless the
+caller passes ``device="cpu"``; on the CPU every kernel wrapper runs its
+plain PyTorch version.
 """
 
 __version__ = "0.1.0"

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -224,3 +225,55 @@ class RiporModel(nn.Module):
             self._step_input(tokens, t), cache, cross_kv, enc_bias,
             self_bias, t)
         return self._step_logits(hidden, t), cache
+
+
+
+def _entries(params):
+    """name -> tensor of a state_dict or of a RiporModel's parameters."""
+    if isinstance(params, nn.Module):
+        return dict(params.named_parameters())
+    return params
+
+
+def _install(params, values: dict):
+    """Write ``values`` (name -> array) over the same-named entries of a
+    state_dict (a new dict is returned) or of a RiporModel (its parameters
+    are overwritten in place; the model is returned), each in the dtype
+    and on the device of the entry it replaces."""
+    entries = _entries(params)
+    for name, v in values.items():
+        if tuple(entries[name].shape) != v.shape:
+            raise ValueError(f"{name}: {tuple(entries[name].shape)} vs "
+                             f"{v.shape}")
+    if isinstance(params, nn.Module):
+        with torch.no_grad():
+            for name, v in values.items():
+                entries[name].copy_(torch.as_tensor(v))
+        return params
+    new = dict(params)
+    for name, v in values.items():
+        new[name] = torch.as_tensor(v).to(dtype=params[name].dtype,
+                                          device=params[name].device)
+    return new
+
+
+def install_codebooks(params, code_embeddings,
+                      shared_output_input_embeds: bool = True):
+    """Install RQ centroids [M, K, d] as the decoder embedding tables —
+    replaces the reference's checkpoint-surgery script
+    (aq_preprocess/change_customized_embed_layer.py:44-88 and
+    assign_output_embeds :832-849). ``params``: a state_dict (returns an
+    updated copy) or a RiporModel (updated in place and returned)."""
+    code_embeddings = np.asarray(code_embeddings)
+    values = {"codebooks": code_embeddings}
+    if not shared_output_input_embeds and "output_codebooks" in _entries(
+            params):
+        values["output_codebooks"] = code_embeddings
+    return _install(params, values)
+
+
+def install_start_embed(params, start_embed):
+    """Install a pretrained start-of-decode embedding (reference loads
+    t5_decoder_start_token_embeds/*.npy at :112-135); ``params`` as in
+    install_codebooks."""
+    return _install(params, {"start_embed": np.asarray(start_embed).reshape(-1)})

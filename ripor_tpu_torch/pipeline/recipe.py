@@ -1,13 +1,15 @@
-"""The retrieval stages of the recipe, over a workspace directory.
+"""The stages of the recipe, over a workspace directory.
 
-Port of ripor_tpu/pipeline/recipe.py's ``Workspace``, ``load_tokenizer``,
-``stage_build_trie``, ``stage_train``, ``stage_retrieve`` and
-``stage_evaluate``; the index-building stages wait for their slices
-(ROADMAP.md Queue 1 items 8 and 11). The workspace layout is the
-reference's:
+Port of ripor_tpu/pipeline/recipe.py: ``Workspace``, ``load_tokenizer``
+and every stage (tokenizer, corpus encode, RQ DocIDs, codebook install,
+trie, train, retrieve, evaluate), with the JAX package's file names. The
+workspace layout is the reference's:
 
   workspace/
     tokenizer.json            (WordTokenizer or Unigram tokenizer)
+    doc_embeds.npy            (reference: doc_embeds.mmap, evaluator.py:664-677)
+    text_ids.tsv              (doc order of the embedding matrix)
+    codebooks.npy             (reference: faiss rq.codebooks)
     docid_to_smtid.json       (reference format incl. -1 sentinel)
     trie.npz                  (the DocIdTrie's arrays)
     checkpoints/<phase>/      (params + config; train/checkpoint.py)
@@ -23,15 +25,21 @@ from pathlib import Path
 from typing import Dict, Iterable, Sequence
 
 import numpy as np
+import torch
 
-from ripor_tpu_torch.data.datasets import Collection
+from ripor_tpu_torch.data.datasets import (Collection, load_docid_to_smtid,
+                                           save_docid_to_smtid)
 from ripor_tpu_torch.data.tokenizer import (TextTokenizer, UnigramTokenizer,
-                                            WordTokenizer, tokenize_queries)
+                                            WordTokenizer, tokenize_docs,
+                                            tokenize_queries)
 from ripor_tpu_torch.decode.beam import (expand_groups_to_docids,
                                          make_beam_search_fn)
 from ripor_tpu_torch.decode.quant_gate import ensure_quant_validated
 from ripor_tpu_torch.evaluation.metrics import evaluate_run
+from ripor_tpu_torch.evaluation.retriever import encode_corpus
 from ripor_tpu_torch.models.config import RiporConfig
+from ripor_tpu_torch.models.ripor import install_codebooks
+from ripor_tpu_torch.quantize.rq import RQCodebooks, rq_encode, train_rq
 from ripor_tpu_torch.train.checkpoint import load_params, save_params
 from ripor_tpu_torch.train.trainer import TrainConfig, Trainer
 from ripor_tpu_torch.trie.build import DocIdTrie, build_trie
@@ -64,6 +72,97 @@ def load_tokenizer(path) -> TextTokenizer:
     if isinstance(obj, dict) and obj.get("kind") == "word":
         return WordTokenizer.load(path)
     return UnigramTokenizer.load(path)
+
+
+def stage_tokenizer(ws: Workspace, corpus_texts: Iterable[str],
+                    vocab_size: int = 32000,
+                    kind: str = "unigram") -> TextTokenizer:
+    """``kind``: "unigram" (production; SentencePiece-family, its trainer
+    is nondeterministic and needs the ``tokenizers`` package) or "word"
+    (deterministic — recipes that gate on exact metrics). An existing
+    tokenizer.json is loaded instead."""
+    if ws.has("tokenizer.json"):
+        return load_tokenizer(ws.path("tokenizer.json"))
+    ws.log(f"training tokenizer ({kind})")
+    if kind == "word":
+        tok = WordTokenizer.train(corpus_texts, vocab_size=vocab_size)
+    elif kind == "unigram":
+        tok = UnigramTokenizer.train(corpus_texts, vocab_size=vocab_size)
+    else:
+        raise ValueError(f"unknown tokenizer kind {kind!r}")
+    tok.save(ws.path("tokenizer.json"))
+    return tok
+
+
+def encode_texts(model, tok: TextTokenizer, texts: Sequence[str],
+                 max_length: int, batch_size: int,
+                 queries: bool = False) -> np.ndarray:
+    """Dense reps [len(texts), d] float32 of docs (or, with ``queries``,
+    of queries: the tokenizer's query prefix) by ``model.dense_rep`` in
+    fixed-shape batches, the last padded with empty texts whose rows are
+    dropped."""
+    tokenize = tokenize_queries if queries else tokenize_docs
+
+    def batches():
+        for s in range(0, len(texts), batch_size):
+            part = list(texts[s:s + batch_size])
+            ids, mask = tokenize(
+                tok, part + [""] * (batch_size - len(part)), max_length)
+            yield {"input_ids": ids, "attention_mask": mask,
+                   "n_valid": len(part)}
+    return encode_corpus(model, batches())
+
+
+def stage_encode_corpus(ws: Workspace, model, docs: Collection,
+                        tok: TextTokenizer, max_length: int = 128,
+                        batch_size: int = 64,
+                        out_name: str = "doc_embeds.npy") -> np.ndarray:
+    """Dense-encode all docs with ``model.dense_rep`` (a RiporModel, in its
+    dtype on its device) -> [N, d] float32, saved as ``out_name`` with
+    text_ids.tsv (reference DenseIndexing + mmap merge, evaluate.py:184-227).
+    ``out_name`` distinguishes encodes by different checkpoints; an
+    existing file is loaded instead."""
+    if ws.has(out_name):
+        return np.load(ws.path(out_name))
+    ws.log(f"encoding {len(docs)} docs -> {out_name}")
+    embs = encode_texts(model, tok, docs.texts, max_length, batch_size)
+    np.save(ws.path(out_name), embs)
+    with open(ws.path("text_ids.tsv"), "w") as f:
+        for i, did in enumerate(docs.ids):
+            f.write(f"{i}\t{did}\n")
+    return embs
+
+
+def stage_build_docids(ws: Workspace, embs, docids: Sequence[str],
+                       M: int, K: int, kmeans_iters: int = 25,
+                       encode_beam: int = 4,
+                       generator: torch.Generator = None,
+                       device=None) -> np.ndarray:
+    """RQ codebooks + codes -> docid_to_smtid.json + codebooks.npy
+    (reference all_aq_pipline steps 3,5,6; SURVEY.md §3.4), on ``device``
+    (default "cuda"); ``generator`` as in quantize.rq.train_rq. When both
+    files exist, the codes are read back instead."""
+    if ws.has("docid_to_smtid.json") and ws.has("codebooks.npy"):
+        _, codes = load_docid_to_smtid(ws.path("docid_to_smtid.json"))
+        return codes
+    ws.log(f"training RQ {M}x{K} on {tuple(embs.shape)}")
+    books = train_rq(embs, M=M, K=K, kmeans_iters=kmeans_iters,
+                     generator=generator, device=device)
+    books.save(ws.path("codebooks.npy"))
+    codes = rq_encode(books, embs, beam=encode_beam, device=device)
+    save_docid_to_smtid(ws.path("docid_to_smtid.json"), list(docids), codes)
+    uniq = len({tuple(r) for r in codes.tolist()})
+    ws.log(f"codes built: {uniq}/{len(codes)} unique smtids")
+    return codes
+
+
+def stage_install_codebooks(ws: Workspace, params,
+                            shared_output_input_embeds: bool = True):
+    """codebooks.npy into ``params`` (a state_dict or a RiporModel:
+    models/ripor.py::install_codebooks)."""
+    books = RQCodebooks.load(ws.path("codebooks.npy"))
+    return install_codebooks(params, books.codebooks,
+                             shared_output_input_embeds)
 
 
 def stage_build_trie(ws: Workspace, codes: np.ndarray, K: int) -> DocIdTrie:

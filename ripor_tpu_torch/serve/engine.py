@@ -1,10 +1,11 @@
-"""Microbatching retrieval engine over the megarow beam search, in PyTorch.
+"""Microbatching retrieval engines, in PyTorch: the megarow beam search
+and dense MIPS.
 
 Port of ripor_tpu/serve/engine.py (``ServeConfig``, ``BaseEngine``,
-``RetrievalEngine``). The engine pads every microbatch to a rung of a
-small ladder of batch sizes, and coalesces concurrent requests into one
-device call: a batcher thread drains the request queue, waits at most
-``max_delay_ms`` for co-riders, then dispatches.
+``RetrievalEngine``, ``DenseEngine``). An engine pads every microbatch to
+a rung of a small ladder of batch sizes, and coalesces concurrent
+requests into one device call: a batcher thread drains the request queue,
+waits at most ``max_delay_ms`` for co-riders, then dispatches.
 
 ``retrieve_batch`` is the synchronous path; ``submit`` returns a Future.
 The decode is asynchronous on the card (the beam loop issues no host
@@ -367,3 +368,59 @@ class RetrievalEngine(BaseEngine):
             out.append([(self._docids[d], float(v))
                         for d, v in zip(docs, doc_scores)])
         return out
+
+
+class DenseEngine(BaseEngine):
+    """Query text -> top-k (docid, score) by exact MIPS over a corpus held
+    on the device (evaluation/retriever.py::dense_topk — the single-card
+    replacement for the reference's 8-GPU faiss shard,
+    tasks/evaluator.py:694-831). ``corpus``: a tensor or an Int8Corpus
+    from retriever.device_corpus, used where it lies, or an [N, d] array,
+    uploaded once as bf16 to ``device`` ("cuda" unless the caller passes
+    another). The query encoder (RiporModel.dense_rep) runs in ``dtype``
+    (default bfloat16) on ``device``; ``params`` is a state_dict.
+    ``approx`` is accepted and exact (retriever.py)."""
+
+    def __init__(self, cfg, params, tok, corpus, docids: Sequence[str],
+                 serve_cfg: ServeConfig = ServeConfig(), warm: bool = True,
+                 approx: bool = False, dtype=None, device=None):
+        import torch
+
+        from ripor_tpu_torch.decode.beam import resolve_device
+        from ripor_tpu_torch.evaluation.retriever import (Int8Corpus,
+                                                          device_corpus)
+        from ripor_tpu_torch.models.ripor import RiporModel
+
+        self._device = resolve_device(device)
+        self.cfg = cfg
+        self._tok = tok
+        self._docids = list(docids)
+        self._approx = approx
+        self._corpus = (corpus
+                        if isinstance(corpus, (torch.Tensor, Int8Corpus))
+                        else device_corpus(corpus, device=self._device))
+        self._model = RiporModel(cfg, dtype=dtype or torch.bfloat16,
+                                 device=self._device)
+        self._model.load_state_dict(params)
+        super().__init__(serve_cfg, warm=warm)
+
+    def _dispatch(self, texts: Sequence[str]):
+        """Tokenize + launch the query encoder (asynchronous on the card)."""
+        import torch
+
+        from ripor_tpu_torch.data.tokenizer import tokenize_queries
+
+        ids, mask = tokenize_queries(self._tok, list(texts),
+                                     self.scfg.max_length)
+        with torch.inference_mode():
+            return self._model.dense_rep(
+                torch.as_tensor(ids, device=self._device),
+                torch.as_tensor(mask, device=self._device))
+
+    def _finish(self, reps, n: int):
+        from ripor_tpu_torch.evaluation.retriever import dense_topk
+
+        scores, idx = dense_topk(reps.float().cpu().numpy(), self._corpus,
+                                 self.scfg.topk, approx=self._approx)
+        return [[(self._docids[d], float(v)) for d, v in zip(qi, qs)]
+                for qi, qs in zip(idx[:n], scores[:n])]

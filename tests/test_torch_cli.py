@@ -257,12 +257,19 @@ def test_max_steps_prefix_run_matches_jax(ws, tmp_path, max_steps):
 
 
 def test_cli_refusals(ws):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        cli(["serve", "--workspace", str(ws["root"]), "--mode", "dense",
-             "--device", "cpu"])
+    """Without CUDA every subcommand that runs on a device refuses its
+    default device before it reads anything."""
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA"):
-            cli(["retrieve", *ws["base"]])
+        root, qdir = str(ws["root"]), str(ws["qdir"])
+        for argv in (["retrieve", *ws["base"]],
+                     ["serve", "--workspace", root, "--mode", "dense",
+                      "--mmap-dir", root],
+                     ["dense-retrieve", "--workspace", root, "--queries",
+                      qdir, "--mmap-dir", root],
+                     ["index", "--workspace", root, "--docs", qdir],
+                     ["aq-index", "--mmap-dir", root, "--out-dir", root]):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                cli(argv)
 
 
 def test_http_endpoints(ws, tmp_path):
