@@ -80,7 +80,24 @@ nonzero and no result line is printed:
      aq-index codebooks installed and ``retrieve`` over the RQ-built trie
      and dev_eval's unconstrained search, each of which must launch K1-K3
      (counters zeroed just before, read just after); (d) run_e2e at
-     tests/test_pipeline.py::test_e2e_slice's geometry (mrr_10 > 0.5).
+     tests/test_pipeline.py::test_e2e_slice's geometry (mrr_10 > 0.5);
+ 10. the teacher and the baselines, in float32 with TF32 off, which
+     launch none of the kernels above: (a) BertCrossEncoder at MiniLM-L6
+     (64 pairs x 256), BertDenseEncoder at bert-base, T5DenseEncoder at
+     t5-base and T5SeqCrossEncoder at ripor_base(M=32, K=256), card
+     against CPU from the same seeded params (|diff| <= 1e-4 * max(1,
+     |x|)); (b) load_bert_teacher from params.pt + bert_geometry.json and
+     rerank_pairs over 64 queries x 100 candidates at max_length 256 in
+     batches of 64 and 512 (pairs/s, device ms a batch beside the f32
+     FLOP bound, the host's share, the busy share of one profiled batch);
+     (c) one step each of bert_bce, t5seq_bce, margin_mse and kldiv on the
+     card and the CPU (phase 8's bars), and Trainer.run of each on the
+     card at its full batch (bert_bce B=32: ms a step, examples/s, MFU;
+     the T5 families B=16); (d) on phase 7's workspace, as
+     processes: ``train --config`` bert_bce, ``rerank`` (equal to
+     rerank_pairs in process), ``rerank-task`` on two ranks at once +
+     ``rerank-task-merge`` (equal to one rank), and the RIPOR self-rerank
+     task + merge (equal to rerank_query_smtids).
 
 Prints the card's name and power limit (nvidia-smi), per-phase lines, then
 a ``{"kernels": [...]}`` line and, last, the contract line
@@ -2235,6 +2252,609 @@ def docid_phase(world, launches, tmp, sz=P9):
     print("phase9_s", time.monotonic() - t0)
 
 
+# ---- phase 10: the teacher and the baselines ----
+
+# The full-width run of phase 10. A rehearsal at a tiny size on the CPU
+# passes a smaller copy (every function below reads its sizes from here).
+P10 = dict(
+    device="cuda",
+    # BertCrossEncoder at MiniLM-L6 geometry (the reference teacher,
+    # cross-encoder/ms-marco-MiniLM-L-6-v2) and BertDenseEncoder at
+    # bert-base; the T5 families at t5-base ({} = T5Config's defaults)
+    minilm=dict(vocab_size=30522, d_model=384, num_layers=6, num_heads=12,
+                d_ff=1536, max_position=512),
+    bert_base=dict(vocab_size=30522, d_model=768, num_layers=12,
+                   num_heads=12, d_ff=3072, max_position=512),
+    t5={}, M=M, K=K,
+    fwd_pairs=64, fwd_len=256, base_seqs=16, base_len=128, t5_seqs=16,
+    t5_len=64, fwd_reps=10,
+    score_queries=64, score_topk=100, score_len=256,
+    score_batches=(64, 512), score_reps=10, doc_words=(50, 200),
+    parity_b=4, bert_b=32, t5_b=16, train_steps=8, t5_steps=2,
+    cli_topk=100, cli_neg=8, cli_b=32, cli_len=256, cli_self_docs=20,
+)
+
+
+def bert_pair_flops(geo, length):
+    """Forward operations of one sequence of ``length`` positions through a
+    BERT of geometry ``geo``: per layer and position the Q/K/V/O
+    projections (4 d^2) and the FFN (2 d d_ff), and the q.k and p.v
+    products (2 length d); 2 operations a multiply-add. At MiniLM-L6 and
+    length 256: 21.2 + 2.4 MFLOP a position, 6.04 GFLOP a pair."""
+    d, f = geo["d_model"], geo["d_ff"]
+    return geo["num_layers"] * length * 2 * (4 * d * d + 2 * d * f
+                                             + 2 * length * d)
+
+
+def device_ms(fn, dev, reps):
+    """Mean time of fn() over reps calls after a warm-up: CUDA events on
+    the card, the host clock on the CPU (a rehearsal)."""
+    import torch
+    if torch.device(dev).type == "cuda":
+        return cuda_ms(fn, reps)
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def t5_config(sz, dropout):
+    import dataclasses
+
+    from ripor_tpu_torch.models import T5Config
+    return dataclasses.replace(T5Config(**sz["t5"]), dropout_rate=dropout)
+
+
+def ripor_config(sz, dropout):
+    from ripor_tpu_torch.models import RiporConfig
+    return RiporConfig(t5=t5_config(sz, dropout), M=sz["M"], K=sz["K"])
+
+
+def family(name, sz, dropout=0.0):
+    """A function device -> a float32 model of the family ``name``."""
+    from ripor_tpu_torch.models import (BertCrossEncoder, BertDenseEncoder,
+                                        T5DenseEncoder, T5SeqCrossEncoder)
+    if name == "BertCrossEncoder":
+        return lambda dev: BertCrossEncoder(**sz["minilm"], dropout=dropout,
+                                            device=dev)
+    if name == "BertDenseEncoder":
+        return lambda dev: BertDenseEncoder(**sz["bert_base"],
+                                            dropout=dropout, device=dev)
+    if name == "T5SeqCrossEncoder":
+        return lambda dev: T5SeqCrossEncoder(ripor_config(sz, dropout),
+                                             device=dev)
+    return lambda dev: T5DenseEncoder(t5_config(sz, dropout), device=dev)
+
+
+def bert_pairs(rng, vocab, b, length):
+    """Pair encodings as BertBceCollator writes them: [CLS] q [SEP] d [EOS]
+    rows of 60-100 % of ``length`` real tokens, token types 1 after the
+    [SEP], alternating labels."""
+    from ripor_tpu_torch.data.tokenizer import CLS_ID, EOS_ID, SEP_ID
+    ids = rng.integers(5, vocab, (b, length)).astype(np.int32)
+    mask = np.zeros((b, length), np.int32)
+    types = np.zeros((b, length), np.int32)
+    for i in range(b):
+        n = int(rng.integers(int(0.6 * length), length + 1))
+        sep = int(rng.integers(3, length // 3))
+        ids[i, [0, sep, n - 1]] = (CLS_ID, SEP_ID, EOS_ID)
+        ids[i, n:] = 0
+        mask[i, :n] = 1
+        types[i, sep + 1:n] = 1
+    return {"input_ids": ids, "attention_mask": mask, "token_type_ids": types,
+            "labels": (np.arange(b) % 2).astype(np.float32)}
+
+
+def token_rows(rng, vocab, b, length):
+    """[b, length] ids with 60-100 % real tokens, and their mask."""
+    ids = rng.integers(5, vocab, (b, length)).astype(np.int32)
+    mask = np.zeros((b, length), np.int32)
+    for i in range(b):
+        mask[i, :int(rng.integers(int(0.6 * length), length + 1))] = 1
+    return ids * mask, mask
+
+
+def loss_batch(loss, rng, sz, b):
+    """A batch of ``loss``'s collator's keys and shapes."""
+    if loss == "bert_bce":
+        return bert_pairs(rng, sz["minilm"]["vocab_size"], b, sz["fwd_len"])
+    v = t5_config(sz, 0.0).vocab_size
+    if loss == "t5seq_bce":
+        ids, mask = token_rows(rng, v, b, sz["t5_len"])
+        return {"query_ids": ids, "query_mask": mask,
+                "codes": rng.integers(0, sz["K"], (b, sz["M"])
+                                      ).astype(np.int32),
+                "labels": (np.arange(b) % 2).astype(np.float32)}
+    batch = {}
+    for side in ("query", "pos_doc", "neg_doc"):
+        batch[f"{side}_ids"], batch[f"{side}_mask"] = token_rows(
+            rng, v, b, sz["t5_len"])
+    for side in ("pos", "neg"):
+        batch[f"teacher_{side}_score"] = (rng.standard_normal(b) * 5
+                                          ).astype(np.float32)
+    return batch
+
+
+TEACHER_LOSSES = (("bert_bce", "BertCrossEncoder"),
+                  ("t5seq_bce", "T5SeqCrossEncoder"),
+                  ("margin_mse", "T5DenseEncoder"),
+                  ("kldiv", "T5DenseEncoder"))
+
+
+def teacher_forwards(sz):
+    """Phase 10 (a): each family's forward on the card against the CPU
+    from the same seeded float32 params (TF32 off): BertCrossEncoder at
+    MiniLM-L6 on 64 pairs of 256 positions, BertDenseEncoder at bert-base
+    on 16 x 128, T5DenseEncoder at t5-base and T5SeqCrossEncoder at
+    ripor_base(M=32, K=256) on 16 x 64. Bar: |card - CPU| <= 1e-4 *
+    max(1, |CPU|) entry by entry."""
+    import torch
+    from ripor_tpu_torch.models import init_params
+    dev = sz["device"]
+    rng = np.random.default_rng(SEED + 10)
+    v = t5_config(sz, 0.0).vocab_size
+    pairs = bert_pairs(rng, sz["minilm"]["vocab_size"], sz["fwd_pairs"],
+                       sz["fwd_len"])
+    base = token_rows(rng, sz["bert_base"]["vocab_size"], sz["base_seqs"],
+                      sz["base_len"])
+    t5 = token_rows(rng, v, sz["t5_seqs"], sz["t5_len"])
+    codes = rng.integers(0, sz["K"], (sz["t5_seqs"], sz["M"])).astype(
+        np.int32)
+    cases = (("BertCrossEncoder", (pairs["input_ids"],
+                                   pairs["attention_mask"],
+                                   pairs["token_type_ids"]),
+              bert_pair_flops(sz["minilm"], sz["fwd_len"])
+              * sz["fwd_pairs"]),
+             ("BertDenseEncoder", base,
+              bert_pair_flops(sz["bert_base"], sz["base_len"])
+              * sz["base_seqs"]),
+             ("T5DenseEncoder", t5, None),
+             ("T5SeqCrossEncoder", t5 + (codes,), None))
+    for name, args, flops in cases:
+        make = family(name, sz)
+        cpu = make("cpu")
+        t0 = time.monotonic()
+        sd = init_params(cpu, torch.Generator().manual_seed(SEED))
+        init_s = time.monotonic() - t0
+        cpu.load_state_dict(sd)
+        card = make(dev)
+        card.load_state_dict(sd)
+        del sd
+        on_card = [torch.as_tensor(a).to(dev) for a in args]
+        with torch.no_grad():
+            t0 = time.monotonic()
+            want = cpu(*map(torch.as_tensor, args))
+            cpu_s = time.monotonic() - t0
+            got = card(*on_card).cpu()
+            ms = device_ms(lambda: card(*on_card), dev, sz["fwd_reps"])
+        err = (got - want).abs()
+        ratio = float((err / want.abs().clamp(min=1.0)).max())
+        rec = {"model": name, "input": list(args[0].shape),
+               "output": list(got.shape), "max_abs_diff": float(err.max()),
+               "max_diff_over_bar": ratio / 1e-4, "card_ms": ms,
+               "cpu_s": cpu_s, "init_s": init_s,
+               "params": sum(p.numel() for p in card.parameters())}
+        if flops is not None:
+            rec.update(flops=flops, bound_ms_f32=flops / F32_FLOPS * 1e3)
+        print("teacher_forward", json.dumps(rec))
+        check(bool(torch.isfinite(got).all()), f"10a {name}: not finite")
+        check(ratio <= 1e-4, f"10a {name}: card and CPU differ: {rec}")
+        del cpu, card, on_card
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def teacher_scoring(sz, tmp):
+    """Phase 10 (b): load_bert_teacher from a params.pt +
+    bert_geometry.json checkpoint (MiniLM-L6, seeded random weights), then
+    rerank_pairs over 64 queries x 100 candidates at max_length 256, in
+    batches of 64 (the rerank CLI's default) and 512: pairs/s, the
+    device's ms per batch beside its float32 FLOP bound, the host's share
+    (encode_pairs tokenizing in Python), and the busy share of one
+    profiled batch."""
+    import os
+
+    import torch
+    from ripor_tpu_torch.data.tokenizer import SEP_ID, HashTokenizer
+    from ripor_tpu_torch.evaluation.reranker import (encode_pairs,
+                                                     load_bert_teacher,
+                                                     rerank_pairs)
+    from ripor_tpu_torch.models import init_params
+    from ripor_tpu_torch.train import save_params
+
+    dev, geo, length = sz["device"], sz["minilm"], sz["score_len"]
+    make = family("BertCrossEncoder", sz, dropout=0.1)
+    ckpt = os.path.join(tmp, "teacher10")
+    save_params(ckpt, init_params(make("meta"),
+                                  torch.Generator().manual_seed(SEED + 10)))
+    with open(os.path.join(ckpt, "bert_geometry.json"), "w") as f:
+        json.dump({k: v for k, v in geo.items() if k != "vocab_size"}, f)
+    t0 = time.monotonic()
+    score_fn = load_bert_teacher(ckpt, geo["vocab_size"], device=dev)
+    load_s = time.monotonic() - t0
+    tok = HashTokenizer(geo["vocab_size"])
+    rng = np.random.default_rng(SEED + 11)
+    words = [f"t{i}" for i in range(20000)]
+    lo, hi = sz["doc_words"]
+    docs = {f"d{j}": " ".join(rng.choice(words, rng.integers(lo, hi + 1)))
+            for j in range(4 * sz["score_topk"])}
+    queries = {f"q{i}": " ".join(rng.choice(words, rng.integers(3, 12)))
+               for i in range(sz["score_queries"])}
+    docids = list(docs)
+    pairs = [(q, d) for q in queries
+             for d in rng.choice(docids, sz["score_topk"], replace=False)]
+    flops = bert_pair_flops(geo, length)
+    ce = make(dev)
+    ce.load_state_dict(torch.load(os.path.join(ckpt, "params.pt"),
+                                  weights_only=True))
+    for bs in sz["score_batches"]:
+        rerank_pairs(score_fn, tok, queries, docs, pairs[:bs], bs, length)
+        sync(dev)
+        t0 = time.monotonic()
+        scored = rerank_pairs(score_fn, tok, queries, docs, pairs, bs, length)
+        sync(dev)
+        wall_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        for s in range(0, len(pairs), bs):
+            chunk = pairs[s:s + bs]
+            ids, mask = encode_pairs(
+                tok, [queries[q] for q, _ in chunk] + [""] * (bs - len(chunk)),
+                [docs[d] for _, d in chunk] + [""] * (bs - len(chunk)),
+                length)
+        encode_s = time.monotonic() - t0
+        ids, mask = encode_pairs(tok, [queries[q] for q, _ in pairs[:bs]],
+                                 [docs[d] for _, d in pairs[:bs]], length)
+        ids_d, mask_d = (torch.as_tensor(a).to(dev) for a in (ids, mask))
+        # the token types load_bert_teacher derives from the first [SEP]
+        types = (mask_d * (torch.arange(length, device=dev)[None] > (
+            ids_d == SEP_ID).int().argmax(1)[:, None])).int()
+        with torch.no_grad():
+            ms = device_ms(lambda: ce(ids_d, mask_d, types), dev,
+                           sz["score_reps"])
+        n_batches = -(-len(pairs) // bs)
+        bound_ms = bs * flops / F32_FLOPS * 1e3
+        n = sum(len(v) for v in scored.values())
+        check(n == len(set(pairs)) and all(
+            np.isfinite(v) for d in scored.values() for v in d.values()),
+            f"10b: {n} scores for {len(set(pairs))} pairs")
+        print("teacher_scoring", json.dumps({
+            "batch": bs, "max_length": length, "pairs": len(pairs),
+            "queries": len(queries), "topk": sz["score_topk"],
+            "pairs_per_s": len(pairs) / wall_s, "wall_s": wall_s,
+            "pairs_per_s_bound_f32": F32_FLOPS / flops,
+            "gflop_per_pair": flops / 1e9, "device_ms_per_batch": ms,
+            "bound_ms_per_batch_f32": bound_ms,
+            "roofline_share_f32": bound_ms / ms,
+            "device_s_all_batches": ms * n_batches / 1e3,
+            "encode_pairs_s": encode_s, "host_share_encode": encode_s / wall_s,
+            "real_tokens_share": float(mask.mean()), "load_s": load_s}))
+    if torch.device(dev).type == "cuda":
+        bs = sz["score_batches"][0]
+
+        def one_batch():
+            return rerank_pairs(score_fn, tok, queries, docs, pairs[:bs], bs,
+                                length)
+        one_batch()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        one_batch()
+        torch.cuda.synchronize()
+        where_time_goes(f"teacher rerank_pairs B={bs}", one_batch,
+                        time.monotonic() - t0,
+                        {"batch": bs, "max_length": length})
+    del ce, score_fn
+
+
+def teacher_training(sz):
+    """Phase 10 (c): one step of each teacher and baseline loss on the card
+    and on the CPU from the same params, dropout off (bert_bce at
+    MiniLM-L6 and 256 positions, t5seq_bce at ripor_base, margin_mse and
+    kldiv at t5-base's T5DenseEncoder with 64 positions; B=4 on both
+    sides, the CPU being the slow one): losses, grad_norm and updated
+    params at phase 8's bars (param_agreement). Then Trainer.run of each
+    loss on the card with dropout 0.1 at its full batch: bert_bce at B=32
+    (2 warm-up and 8 timed steps: ms a step, examples/s, MFU against the
+    float32 peak), t5seq_bce, margin_mse and kldiv at B=16 (2 + 2)."""
+    import torch
+    from ripor_tpu_torch.models import init_params
+    from ripor_tpu_torch.train import TrainConfig, Trainer
+
+    dev = sz["device"]
+    rng = np.random.default_rng(SEED + 12)
+    for loss, name in TEACHER_LOSSES:
+        make = family(name, sz)
+        sd = init_params(make("meta"), torch.Generator().manual_seed(SEED))
+        batch = loss_batch(loss, rng, sz, sz["parity_b"])
+        tcfg = TrainConfig(loss_type=loss)
+        out = {}
+        for where in ("cpu", dev):
+            model = make(where)
+            t0 = time.monotonic()
+            _, metrics = Trainer(model, tcfg, sd).run([batch])
+            metrics = {k: float(v) for k, v in metrics.items()}
+            out[where] = (metrics, {k: v.detach().cpu() for k, v in
+                                    model.state_dict().items()},
+                          time.monotonic() - t0)
+            if where == "cpu":
+                scale = min(1.0, tcfg.grad_clip / metrics["grad_norm"])
+                steady = {k: (p.grad.abs() * scale >= 1e-6
+                              if p.grad is not None
+                              else torch.zeros_like(p, dtype=torch.bool))
+                          for k, p in model.named_parameters()}
+            del model
+        (mc, pc, cpu_s), (mg, pg, dev_s) = out["cpu"], out[dev]
+        rel = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-30) for k in mc}
+        agree = param_agreement(pg, pc, steady=steady)
+        moved = param_agreement(pc, sd)
+        print("teacher_train_parity", json.dumps({
+            "loss": loss, "model": name, "batch": sz["parity_b"],
+            "cpu": mc, "card": mg, "rel_diff": rel, "params": agree,
+            "params_moved_share": 1.0 - moved["equal_share"],
+            "cpu_step_s": cpu_s, "card_step_s": dev_s}))
+        check(set(mc) == set(mg) and all(np.isfinite(v) for v in mg.values()),
+              f"10c {loss}: metrics {mg}")
+        check(max(rel[k] for k in rel if k != "grad_norm") <= 1e-4
+              and rel["grad_norm"] <= 1e-3, f"10c {loss}: {rel}")
+        check(agree["max_abs"] <= 2 * tcfg.learning_rate + 1e-6
+              and agree["loose_share"] <= 1e-2
+              and agree["steady_loose_share"] <= 1e-6,
+              f"10c {loss}: updated params differ: {agree}")
+        del out, pc, pg, steady, sd
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+
+    # speed at the default dropout 0.1: bert_bce at B=32 x 256 (8 timed
+    # steps; MFU from bert_pair_flops), the T5 families at B=16 (2 timed)
+    for loss, name in TEACHER_LOSSES:
+        bert = loss == "bert_bce"
+        make = family(name, sz, dropout=0.1)
+        sd = init_params(make("meta"), torch.Generator().manual_seed(SEED))
+        b = sz["bert_b"] if bert else sz["t5_b"]
+        steps = sz["train_steps"] if bert else sz["t5_steps"]
+        batches = [loss_batch(loss, rng, sz, b) for _ in range(steps + 2)]
+        flops = (3 * b * bert_pair_flops(sz["minilm"], sz["fwd_len"])
+                 if bert else None)
+        logs = []
+        trainer = Trainer(make(dev), TrainConfig(loss_type=loss), sd,
+                          log_fn=lambda m, s: logs.append((s, m)))
+        del sd
+        reset_peak(dev)
+        t0 = time.monotonic()
+        trainer.run(batches, seed=SEED, log_every=1, flops_per_step=flops)
+        wall_s = time.monotonic() - t0
+        last = logs[-1][1]
+        check([s for s, _ in logs] == list(range(1, len(batches) + 1))
+              and all(np.isfinite(m["loss"]) for _, m in logs),
+              f"10c {loss} speed: {[(s, m['loss']) for s, m in logs]}")
+        p50 = last["p50_s"]
+        rec = {"loss": loss, "model": name, "dropout": 0.1, "batch": b,
+               "positions": sz["fwd_len"] if bert else sz["t5_len"],
+               "steps_warmup": 2, "steps_timed": last["steps"],
+               "ms_per_step_median": p50 * 1e3,
+               "ms_per_step_mean": last["mean_s"] * 1e3,
+               "ms_per_step_p95": last["p95_s"] * 1e3,
+               "examples_per_s": b / p50, "peak_memory_gb": peak_gb(dev),
+               "wall_s": wall_s, "loss_first": logs[0][1]["loss"],
+               "loss_last": last["loss"]}
+        if bert:
+            rec.update(flops_per_step=flops,
+                       bound_ms_f32=flops / F32_FLOPS * 1e3,
+                       mfu_f32=flops / p50 / F32_FLOPS)
+        print("teacher_train_speed", json.dumps(rec))
+        del trainer
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def rerank_cli(argv, tag, cwd):
+    """The port's CLI as a process of its own; echoes its output."""
+    sub = subprocess.run([sys.executable, "-m", "ripor_tpu_torch.cli.main",
+                          *argv], cwd=cwd, capture_output=True, text=True,
+                         timeout=600)
+    for line in sub.stdout.splitlines():
+        print(f"cli {tag}:", line)
+    check(sub.returncode == 0, f"{tag}: exit {sub.returncode}: "
+          f"{sub.stderr[-2000:]}")
+    return sub.stdout
+
+
+def read_jsonl(path):
+    with open(path) as f:
+        return {r["qid"]: r for r in map(json.loads, f)}
+
+
+def same_scores(tag, got, want, tol=1e-5):
+    """Two {qid: {"docids", "scores"}} trainsets: the same queries, docids
+    in the same order, scores within tol * max(1, |score|)."""
+    check(sorted(got) == sorted(want), f"{tag}: qids differ")
+    for q, w in want.items():
+        g = got[q]
+        check(g["docids"] == w["docids"], f"{tag}: {q} docids differ")
+        err = max((abs(a - b) / max(1.0, abs(b))
+                   for a, b in zip(g["scores"], w["scores"])), default=0.0)
+        check(err <= tol, f"{tag}: {q} scores differ by {err}")
+
+
+def teacher_cli(world, sz, tmp):
+    """Phase 10 (d): the CLI on phase 7's workspace, as processes of their
+    own: bce_examples from build_bce_examples over the top 100 of phase
+    7's run.json and its qrel (doc texts written for those docs);
+    ``train --config`` with bert_bce at the default geometry (MiniLM-L6,
+    the tokenizer's vocabulary) -> checkpoints/teacher/params.pt;
+    ``rerank`` of that checkpoint, equal to rerank_pairs in this process;
+    ``rerank-task rerank_for_create_trainset`` on two ranks at once, then
+    ``rerank-task-merge --nranks 2``, equal to a one-rank run; and
+    ``rerank-task query_to_docid_rerank_for_qid_smtids`` on phase 7's RIPOR
+    checkpoint + its merge with the qrel, equal to rerank_query_smtids in
+    this process."""
+    import os
+
+    from ripor_tpu_torch.data.datasets import (Collection,
+                                               build_bce_examples,
+                                               load_docid_to_smtid,
+                                               save_bce_examples,
+                                               smtid_to_str)
+    from ripor_tpu_torch.evaluation.reranker import (load_bert_teacher,
+                                                     rerank_pairs,
+                                                     rerank_query_smtids)
+    from ripor_tpu_torch.pipeline import load_tokenizer
+    from ripor_tpu_torch.train import load_params
+
+    dev = sz["device"]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    ws, qdir = os.path.join(tmp, "ws"), os.path.join(tmp, "queries")
+    with open(os.path.join(ws, "run.json")) as f:
+        run = {q: dict(list(d.items())[:sz["cli_topk"]])
+               for q, d in json.load(f).items()}
+    run_path = os.path.join(tmp, "run10.json")      # the top 100 a query
+    with open(run_path, "w") as f:
+        json.dump(run, f)
+    with open(os.path.join(tmp, "qrel.json")) as f:
+        qrel = json.load(f)
+    tok = load_tokenizer(os.path.join(ws, "tokenizer.json"))
+    rng = np.random.default_rng(SEED + 13)
+    docs_dir = os.path.join(tmp, "docs10")
+    os.makedirs(docs_dir)
+    cands = sorted({d for dd in run.values() for d in dd}
+                   | {d for rel in qrel.values() for d in rel})
+    lo, hi = sz["doc_words"]
+    with open(os.path.join(docs_dir, "raw.tsv"), "w") as f:
+        for d in cands:
+            text = " ".join(rng.choice(world["words"],
+                                       rng.integers(lo, hi + 1)))
+            f.write(f"{d}\t{text}\n")
+    rows = build_bce_examples(qrel, run, neg_sample=sz["cli_neg"])
+    bce = os.path.join(tmp, "bce10.tsv")
+    save_bce_examples(bce, rows)
+    conf = os.path.join(tmp, "teacher_config.json")
+    with open(conf, "w") as f:
+        json.dump({"workspace": ws, "queries_dir": qdir,
+                   "docs_dir": docs_dir, "examples_path": bce,
+                   "loss_type": "bert_bce", "batch_size": sz["cli_b"],
+                   "max_length": sz["cli_len"], "phase_name": "teacher"}, f)
+    devf = ["--device", dev]
+    t0 = time.monotonic()
+    rerank_cli(["train", "--config", conf] + devf, "train bert_bce", repo)
+    train_s = time.monotonic() - t0
+    ckpt = os.path.join(ws, "checkpoints", "teacher")
+    check(os.path.exists(os.path.join(ckpt, "params.pt"))
+          and not os.path.exists(os.path.join(ckpt, "config.json")),
+          "10d: the teacher checkpoint is not a bare params.pt")
+    check("pooler.weight" in load_params(ckpt), "10d: not a BertCrossEncoder")
+
+    length = ["--max-length", str(sz["cli_len"])]
+    common = ["--queries", qdir, "--docs", docs_dir, "--tokenizer",
+              os.path.join(ws, "tokenizer.json"), "--ce-checkpoint", ckpt,
+              *length]
+    out = os.path.join(tmp, "teacher_trainset.jsonl")
+    t0 = time.monotonic()
+    rerank_cli(["rerank", "--run", run_path, *common,
+                "--ce-vocab-size", str(tok.vocab_size), "--topk",
+                str(sz["cli_topk"]), "--out", out] + devf, "rerank", repo)
+    rerank_s = time.monotonic() - t0
+    score_fn = load_bert_teacher(ckpt, tok.vocab_size, device=dev)
+    queries, docs = Collection(qdir), Collection(docs_dir)
+    pairs = [(q, d) for q, dd in run.items() for d in dd]
+    want = {q: {"docids": [d for d, _ in sorted(s.items(),
+                                                key=lambda kv: -kv[1])],
+                "scores": sorted(s.values(), reverse=True)}
+            for q, s in rerank_pairs(score_fn, tok, queries, docs, pairs,
+                                     max_length=sz["cli_len"]).items()}
+    got = read_jsonl(out)
+    same_scores("10d rerank vs rerank_pairs", got, want)
+    check(sum(len(r["docids"]) for r in got.values()) == len(pairs),
+          "10d rerank: pairs missing")
+
+    task = ["rerank-task", "--task", "rerank_for_create_trainset",
+            "--tokenizer", os.path.join(ws, "tokenizer.json"), "--queries",
+            qdir, "--docs", docs_dir, "--ce-checkpoint", ckpt, "--run",
+            run_path, *length] + devf
+    two, one = os.path.join(tmp, "rerank_two"), os.path.join(tmp, "rerank_one")
+    t0 = time.monotonic()
+    procs = [subprocess.Popen([sys.executable, "-m",
+                               "ripor_tpu_torch.cli.main", *task, "--out-dir",
+                               two, "--rank", str(r), "--nranks", "2"],
+                              cwd=repo, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in (0, 1)]
+    for r, p in enumerate(procs):
+        o, e = p.communicate(timeout=600)
+        print(f"cli rerank-task rank {r}:", o.strip())
+        check(p.returncode == 0, f"10d rank {r}: exit {p.returncode}: "
+              f"{e[-2000:]}")
+    ranks_s = time.monotonic() - t0
+    merge = ["rerank-task-merge", "--task", "rerank_for_create_trainset",
+             "--topk", str(sz["cli_topk"])]
+    rerank_cli(merge + ["--out-dir", two, "--nranks", "2"], "merge", repo)
+    run_cli(task + ["--out-dir", one], "rerank-task one rank")
+    run_cli(merge + ["--out-dir", one, "--nranks", "1"], "merge one rank")
+    name = "qid_docids_teacher_scores.train.json"
+    same_scores("10d two ranks vs one", read_jsonl(os.path.join(two, name)),
+                read_jsonl(os.path.join(one, name)))
+    same_scores("10d rerank-task vs rerank", read_jsonl(
+        os.path.join(one, name)), got)
+
+    # the RIPOR model scoring its own smtids
+    qid_docids = {q: list(dd)[:sz["cli_self_docs"]] for q, dd in run.items()}
+    with open(os.path.join(tmp, "qid_docids10.json"), "w") as f:
+        json.dump(qid_docids, f)
+    d2s = os.path.join(ws, "docid_to_smtid.json")
+    self_dir = os.path.join(tmp, "self10")
+    t0 = time.monotonic()
+    rerank_cli(["rerank-task", "--task",
+                "query_to_docid_rerank_for_qid_smtids", "--tokenizer",
+                os.path.join(ws, "tokenizer.json"), "--queries", qdir,
+                "--input-json", os.path.join(tmp, "qid_docids10.json"),
+                "--docid-to-smtid", d2s, "--workspace", ws, "--out-dir",
+                self_dir, *length] + devf, "self-rerank", repo)
+    self_s = time.monotonic() - t0
+    out = rerank_cli(["rerank-task-merge", "--task",
+                      "query_to_docid_rerank_for_qid_smtids", "--out-dir",
+                      self_dir, "--docid-to-smtid", d2s, "--qrel",
+                      os.path.join(tmp, "qrel.json")], "self-rerank merge",
+                     repo)
+    with open(os.path.join(self_dir, "qid_smtids_rerank.json")) as f:
+        got_self = json.load(f)
+    with open(os.path.join(self_dir, "metric.json")) as f:
+        metric = json.load(f)
+    docids, codes = load_docid_to_smtid(d2s)
+    d2c = dict(zip(docids, codes))
+    want_self = rerank_query_smtids(
+        world["cfg"], load_params(os.path.join(ws, "checkpoints", "final")),
+        tok, queries, {q: sorted({smtid_to_str(d2c[d]) for d in dd})
+                       for q, dd in sorted(qid_docids.items())},
+        max_length=sz["cli_len"], device=dev)
+    top = max(abs(v) for d in want_self.values() for v in d.values())
+    check(sorted(got_self) == sorted(want_self) and all(
+        got_self[q].keys() == want_self[q].keys()
+        and max(abs(got_self[q][s] - v) for s, v in want_self[q].items())
+        <= 1e-5 * max(1.0, top) for q in want_self),
+        "10d self-rerank vs rerank_query_smtids")
+    check(set(metric) == {"mrr_at_10", "mrr_at_100"}, f"10d metric {metric}")
+    print("teacher_cli", json.dumps({
+        "bce_rows": len(rows), "train_steps": len(rows) // sz["cli_b"],
+        "docs_written": len(cands), "pairs": len(pairs),
+        "vocab": tok.vocab_size, "train_process_s": train_s,
+        "rerank_process_s": rerank_s, "two_ranks_s": ranks_s,
+        "self_rerank_process_s": self_s, "self_rerank_metric": metric}))
+
+
+def teacher_phase(world, tmp, sz=P10):
+    """Phase 10: (a) teacher_forwards, (b) teacher_scoring, (c)
+    teacher_training, (d) teacher_cli — float32 with TF32 off; no kernel
+    of the port lies on this path."""
+    import torch
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on; phase 10 runs in float32")
+    t0 = time.monotonic()
+    teacher_forwards(sz)
+    teacher_scoring(sz, tmp)
+    teacher_training(sz)
+    teacher_cli(world, sz, tmp)
+    print("phase10_s", time.monotonic() - t0)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2280,6 +2900,7 @@ def main():
         train_phase(world, tmp)
         phase9 = {}
         docid_phase(world, phase9, tmp)
+        teacher_phase(world, tmp)
 
     # kernel: (TPU kernel it replaces, case of the reported times, path
     # whose run gives the launches)

@@ -1,17 +1,18 @@
 """CLI entry points of the port: evaluate / retrieve / retrieve-merge /
 serve / train / e2e / index / merge-embs / aq-index / hnsw-index /
-dense-retrieve.
+dense-retrieve / rerank / rerank-task / rerank-task-merge.
 
 Port of ripor_tpu/cli/main.py's subcommands of the retrieval and dense
-paths, the DocID build, ``train`` and ``e2e``, with the same flags and
-defaults, and one more on each subcommand that runs on a device
-(``retrieve``, ``serve``, ``train``, ``e2e``, ``index``, ``aq-index``,
-``dense-retrieve``): ``--device`` (default ``cuda``; ``cpu`` runs the
-plain PyTorch path, and without CUDA the default raises). Retrieval and
-encoding run the model in bfloat16, its params rounded to bf16 as
-ServeConfig.param_dtype does; training runs in float32. The teacher,
-baseline and pipeline subcommands of the JAX CLI (rerank*, full-recipe,
-pipeline, datagen) wait for their slices (ROADMAP.md Queue 1).
+paths, the DocID build, ``train``, ``e2e`` and the teacher's reranking,
+with the same flags and defaults, and one more on each subcommand that
+runs on a device (``retrieve``, ``serve``, ``train``, ``e2e``, ``index``,
+``aq-index``, ``dense-retrieve``, ``rerank``, ``rerank-task``):
+``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path, and
+without CUDA the default raises). Retrieval and encoding run the model in
+bfloat16, its params rounded to bf16 as ServeConfig.param_dtype does;
+training and the BertCrossEncoder teacher run in float32. The pipeline
+subcommands of the JAX CLI (full-recipe, pipeline, datagen) wait for
+their slice (ROADMAP.md Queue 1).
 
 Usage:
   python -m ripor_tpu_torch.cli.main retrieve --workspace ws --queries qdir \
@@ -27,6 +28,16 @@ Usage:
       # -> out/docid_to_smtid.json, out/codebooks.npz.npy
   python -m ripor_tpu_torch.cli.main dense-retrieve --workspace ws \
       --queries qdir --mmap-dir m [--device-corpus [--corpus-quant int8]]
+  python -m ripor_tpu_torch.cli.main rerank --run ws/run.json \
+      --queries qdir --docs ddir --tokenizer ws/tokenizer.json \
+      --ce-checkpoint ws/checkpoints/bert_bce --ce-vocab-size V
+      # -> teacher_trainset.jsonl ({"qid", "docids", "scores"} lines)
+  python -m ripor_tpu_torch.cli.main rerank-task \
+      --task rerank_for_create_trainset --out-dir out --tokenizer t.json \
+      --queries qdir --docs ddir --ce-checkpoint ck --run run.json \
+      --rank r --nranks R        # -> out/rerank_<r>.json, then
+  python -m ripor_tpu_torch.cli.main rerank-task-merge \
+      --task rerank_for_create_trainset --out-dir out --nranks R
 """
 from __future__ import annotations
 
@@ -350,6 +361,160 @@ def cmd_dense_retrieve(args):
     print(f"wrote {args.out} ({len(run)} queries)")
 
 
+def cmd_rerank(args):
+    """Cross-encoder teacher scoring of a run file -> teacher trainset JSONL
+    (reference rerank.py task=rerank_for_create_trainset{,_2})."""
+    from ripor_tpu_torch.data.datasets import Collection
+    from ripor_tpu_torch.evaluation.reranker import (load_bert_teacher,
+                                                     rerank_pairs)
+    from ripor_tpu_torch.pipeline.recipe import load_tokenizer
+
+    tok = load_tokenizer(args.tokenizer)
+    queries = Collection(args.queries)
+    docs = Collection(args.docs)
+    with open(args.run) as f:
+        run = json.load(f)
+    # load_bert_teacher reads bert_geometry.json next to the checkpoint and
+    # derives token_type_ids from the [SEP] position (the training
+    # convention)
+    score_fn = load_bert_teacher(args.ce_checkpoint, args.ce_vocab_size,
+                                 device=resolve_device(args.device))
+
+    pairs = [(q, d) for q, dd in run.items() for d in list(dd)[:args.topk]]
+    scored = rerank_pairs(score_fn, tok, queries, docs, pairs,
+                          batch_size=args.batch_size,
+                          max_length=args.max_length)
+    with open(args.out, "w") as f:
+        for qid, doc_scores in scored.items():
+            ranked = sorted(doc_scores.items(), key=lambda kv: -kv[1])
+            f.write(json.dumps({
+                "qid": qid,
+                "docids": [d for d, _ in ranked],
+                "scores": [s for _, s in ranked]}) + "\n")
+    print(f"wrote {args.out} ({len(scored)} queries)")
+
+
+def _d2s_map(path):
+    """docid_to_smtid.json -> {docid: code list} (sentinel already stripped
+    by load_docid_to_smtid)."""
+    from ripor_tpu_torch.data.datasets import load_docid_to_smtid
+    docids, codes = load_docid_to_smtid(path)
+    return dict(zip(docids, [list(map(int, c)) for c in codes]))
+
+
+def cmd_rerank_task(args):
+    """One sharded scoring pass of a reference rerank.py task (writes the
+    per-rank JSON shard; run ``rerank-task-merge`` after all ranks finish).
+    Task names match the reference's t5_pretrainer/rerank.py:655-691. The
+    BertCrossEncoder teacher is built at the tokenizer's vocabulary size."""
+    from ripor_tpu_torch.data.datasets import Collection, load_qrel
+    from ripor_tpu_torch.evaluation import rerank_tasks as rt
+    from ripor_tpu_torch.evaluation.reranker import load_bert_teacher
+    from ripor_tpu_torch.pipeline.recipe import load_tokenizer
+
+    device = resolve_device(args.device)
+    tok = load_tokenizer(args.tokenizer)
+    queries = Collection(args.queries) if args.queries else None
+    docs = Collection(args.docs) if args.docs else None
+    kw = dict(rank=args.rank, nranks=args.nranks,
+              batch_size=args.batch_size, max_length=args.max_length)
+
+    def teacher():
+        return load_bert_teacher(args.ce_checkpoint, tok.vocab_size,
+                                 device=device)
+
+    t = args.task
+    if t == "rerank_for_create_trainset":
+        with open(args.run) as f:
+            run = json.load(f)
+        out = rt.rerank_for_create_trainset(teacher(), tok, queries, docs,
+                                            run, args.out_dir, **kw)
+    elif t == "assign_scores_for_pseudo_queries":
+        with open(args.input_json) as f:
+            docid_pseudo_qids = json.load(f)
+        out = rt.assign_scores_for_pseudo_queries(
+            teacher(), tok, queries, docs, docid_pseudo_qids,
+            args.out_dir, **kw)
+    elif t == "query_to_docid_rerank_for_qid_smtids":
+        _, cfg, params = _load_workspace_model(args.workspace, args.phase)
+        with open(args.input_json) as f:
+            qid_docids = json.load(f)
+        out = rt.query_to_docid_rerank_for_qid_smtids(
+            cfg, params, tok, queries, qid_docids,
+            _d2s_map(args.docid_to_smtid), args.out_dir, device=device,
+            **kw)
+    elif t == "teacher_rerank_for_qid_smtids":
+        with open(args.input_json) as f:
+            qid_smtid_rank = json.load(f)
+        out = rt.teacher_rerank_for_qid_smtids(
+            teacher(), tok, queries, docs, qid_smtid_rank,
+            _d2s_map(args.docid_to_smtid), args.out_dir, **kw)
+    elif t == "cross_encoder_rerank_for_same_prefix_docid":
+        out = rt.cross_encoder_rerank_for_same_prefix_docid(
+            teacher(), tok, queries, docs, _d2s_map(args.docid_to_smtid),
+            load_qrel(args.qrel), args.out_dir,
+            neg_sample=args.neg_sample, **kw)
+    elif t == "cross_encoder_rerank_for_same_reldocid_hard_docids":
+        with open(args.input_json) as f:
+            pools = json.load(f)
+        out = rt.cross_encoder_rerank_for_same_reldocid_hard_docids(
+            teacher(), tok, queries, docs, pools, args.out_dir, **kw)
+    elif t == "cross_encoder_rerank_for_qid_smtid_docids":
+        out = rt.cross_encoder_rerank_for_qid_smtid_docids(
+            teacher(), tok, queries, docs, args.input_json, **kw)
+    else:
+        raise SystemExit(f"unknown task {t}")
+    print(f"wrote {out}")
+
+
+def cmd_rerank_task_merge(args):
+    """Merge a task's per-rank shards into its final artifact (the
+    reference's *_2 tasks, rerank.py:67-654)."""
+    from ripor_tpu_torch.data.datasets import load_qrel
+    from ripor_tpu_torch.evaluation import rerank_tasks as rt
+
+    t = args.task
+    nr = args.nranks  # None -> merge whatever shards exist (legacy)
+    if t == "rerank_for_create_trainset":
+        out = rt.rerank_for_create_trainset_merge(args.out_dir,
+                                                  topk=args.topk, nranks=nr)
+    elif t == "rerank_for_evaluate":
+        out = rt.rerank_for_evaluate_merge(args.out_dir, nranks=nr)
+    elif t == "assign_scores_for_pseudo_queries":
+        out = rt.assign_scores_for_pseudo_queries_merge(args.out_dir,
+                                                        nranks=nr)
+    elif t == "query_to_docid_rerank_for_qid_smtids":
+        qrel = load_qrel(args.qrel) if args.qrel else None
+        out, metrics = rt.query_to_docid_rerank_for_qid_smtids_merge(
+            args.out_dir, _d2s_map(args.docid_to_smtid), qrel, nranks=nr)
+        if metrics:
+            print(json.dumps(metrics, indent=2))
+    elif t == "teacher_rerank_for_qid_smtids":
+        out = rt.teacher_rerank_for_qid_smtids_merge(args.out_dir, nranks=nr)
+    elif t == "cross_encoder_rerank_for_same_prefix_docid":
+        out, _ = rt.cross_encoder_rerank_for_same_prefix_docid_merge(
+            args.out_dir, nranks=nr)
+    elif t == "cross_encoder_rerank_for_same_reldocid_hard_docids":
+        out = rt.cross_encoder_rerank_for_same_reldocid_hard_docids_merge(
+            args.out_dir, nranks=nr)
+    elif t == "cross_encoder_rerank_for_qid_smtid_docids":
+        out = rt.cross_encoder_rerank_for_qid_smtid_docids_merge(
+            args.out_dir, nranks=nr)
+    else:
+        raise SystemExit(f"unknown task {t}")
+    print(f"wrote {out}")
+
+
+RERANK_TASKS = [
+    "rerank_for_create_trainset",
+    "assign_scores_for_pseudo_queries",
+    "query_to_docid_rerank_for_qid_smtids",
+    "teacher_rerank_for_qid_smtids",
+    "cross_encoder_rerank_for_same_prefix_docid",
+    "cross_encoder_rerank_for_same_reldocid_hard_docids",
+    "cross_encoder_rerank_for_qid_smtid_docids",
+]
+
 DEVICE_HELP = "cuda (default) or cpu (the plain PyTorch path)"
 
 
@@ -491,6 +656,57 @@ def main(argv=None):
                           "device-corpus only")
     pdr.add_argument("--device", default="cuda", help=DEVICE_HELP)
     pdr.set_defaults(fn=cmd_dense_retrieve)
+
+    prr = sub.add_parser("rerank", help="cross-encoder teacher scoring")
+    prr.add_argument("--run", required=True)
+    prr.add_argument("--queries", required=True)
+    prr.add_argument("--docs", required=True)
+    prr.add_argument("--tokenizer", required=True)
+    prr.add_argument("--ce-checkpoint", required=True)
+    prr.add_argument("--ce-vocab-size", type=int, default=32000)
+    prr.add_argument("--topk", type=int, default=100)
+    prr.add_argument("--batch-size", type=int, default=64)
+    prr.add_argument("--max-length", type=int, default=256)
+    prr.add_argument("--out", default="teacher_trainset.jsonl")
+    prr.add_argument("--device", default="cuda", help=DEVICE_HELP)
+    prr.set_defaults(fn=cmd_rerank)
+
+    prt = sub.add_parser("rerank-task",
+                         help="one reference rerank.py task (sharded pass)")
+    prt.add_argument("--task", required=True, choices=RERANK_TASKS)
+    prt.add_argument("--out-dir", required=True)
+    prt.add_argument("--tokenizer", required=True)
+    prt.add_argument("--queries")
+    prt.add_argument("--docs")
+    prt.add_argument("--ce-checkpoint")
+    prt.add_argument("--run")
+    prt.add_argument("--input-json",
+                     help="task-specific input (qid_docids / pseudo qids / "
+                          "qid_smtid_rank / hard pools / qid_smtid_docids)")
+    prt.add_argument("--docid-to-smtid")
+    prt.add_argument("--qrel")
+    prt.add_argument("--workspace")
+    prt.add_argument("--phase", default="final")
+    prt.add_argument("--neg-sample", type=int, default=50)
+    prt.add_argument("--rank", type=int, default=0)
+    prt.add_argument("--nranks", type=int, default=1)
+    prt.add_argument("--batch-size", type=int, default=64)
+    prt.add_argument("--max-length", type=int, default=256)
+    prt.add_argument("--device", default="cuda", help=DEVICE_HELP)
+    prt.set_defaults(fn=cmd_rerank_task)
+
+    prtm = sub.add_parser("rerank-task-merge",
+                          help="merge a task's rank shards (the ref's *_2)")
+    prtm.add_argument("--task", required=True,
+                      choices=RERANK_TASKS + ["rerank_for_evaluate"])
+    prtm.add_argument("--out-dir", required=True)
+    prtm.add_argument("--nranks", type=int, default=None,
+                      help="verify shards for ranks 0..nranks-1 all exist "
+                           "before merging (omit to merge whatever is there)")
+    prtm.add_argument("--topk", type=int, default=200)
+    prtm.add_argument("--docid-to-smtid")
+    prtm.add_argument("--qrel")
+    prtm.set_defaults(fn=cmd_rerank_task_merge)
 
     args = p.parse_args(argv)
     args.fn(args)

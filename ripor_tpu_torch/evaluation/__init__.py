@@ -9,6 +9,13 @@ from ripor_tpu_torch.evaluation.metrics import (
 )
 from ripor_tpu_torch.evaluation.bm25 import BM25Index
 from ripor_tpu_torch.evaluation.hnsw import HnswIndex, recall_vs_exact
+from ripor_tpu_torch.evaluation.reranker import (
+    add_qrel_positives,
+    encode_pairs,
+    load_bert_teacher,
+    rerank_pairs,
+    rerank_qid_smtid_docids,
+)
 from ripor_tpu_torch.evaluation.retriever import (
     Int8Corpus,
     dense_topk,
@@ -24,4 +31,6 @@ __all__ = [
     "retrieve_to_run",
     "HnswIndex", "recall_vs_exact",
     "BM25Index",
+    "encode_pairs", "rerank_pairs", "rerank_qid_smtid_docids",
+    "load_bert_teacher", "add_qrel_positives",
 ]

@@ -1,14 +1,22 @@
-"""Weights for the port's RiporModel: from a flax param tree, or random.
+"""Weights for the port's models: from a flax param tree, or random.
 
 ``params_from_jax`` maps the JAX package's flax tree (numpy leaves) onto
-this package's state_dict names: ``layer_<i>`` -> ``layers.<i>``, a Dense
-``kernel`` [in, out] -> a Linear ``weight`` [out, in], ``shared/embedding``
--> ``shared.weight``; RMSNorm ``scale``, the relpos tables, ``codebooks``,
-``output_codebooks`` and ``start_embed`` carry over as they are.
+this package's state_dict names, for every ported family: RiporModel,
+BertCrossEncoder, BertDenseEncoder, T5SeqCrossEncoder and T5DenseEncoder.
+The rules are the same for all: ``layer_<i>`` -> ``layers.<i>``, a Dense
+``kernel`` [in, out] -> a Linear ``weight`` [out, in], an Embed
+``embedding`` -> an Embedding ``weight``; norm ``scale``/``bias``, Dense
+``bias``, the relpos tables, ``codebooks``, ``output_codebooks`` and
+``start_embed`` carry over as they are (the T5 head's unnamed
+``Dense_0``/``Dense_1`` keep their names). The result must fit the target
+model's state_dict, name for name and shape for shape.
 
-``init_params`` draws a state_dict with the flax initializers' scales
-(normal with T5's per-projection std, ones for RMSNorm) from a
-``torch.Generator``.
+``init_params`` draws a state_dict with the flax initializers'
+distributions from a ``torch.Generator``: T5's per-projection normal
+stds, ones for the norms' scales, and for the BERT families and the T5
+classification head flax's defaults (lecun-normal Dense kernels — a
+normal truncated at two stds — zero biases, normal(1/sqrt(d)) Embed
+tables, zero LayerNorm biases). The draws differ from flax's.
 
 ``train_state_from_jax`` carries a JAX training run across: its step,
 params and optax AdamW moments become the state the port's Trainer
@@ -21,6 +29,7 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from ripor_tpu_torch.models.config import RiporConfig
 
@@ -33,9 +42,11 @@ def _flatten(tree: Mapping, prefix=()):
             yield prefix + (k,), v
 
 
-def params_from_jax(tree: Mapping, cfg: RiporConfig) -> Dict[str, torch.Tensor]:
+def params_from_jax(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
     """flax param tree (nested mappings of numpy arrays) -> state_dict of
-    CPU tensors for ``RiporModel(cfg)``."""
+    CPU tensors for ``cfg``: a RiporConfig (for ``RiporModel(cfg)``) or a
+    model of any ported family (e.g. ``BertCrossEncoder(...)``, on any
+    device, ``"meta"`` included)."""
     out = {}
     for path, leaf in _flatten(tree):
         arr = np.asarray(leaf)
@@ -48,27 +59,30 @@ def params_from_jax(tree: Mapping, cfg: RiporConfig) -> Dict[str, torch.Tensor]:
         if parts[-1] == "kernel":
             parts[-1] = "weight"
             arr = arr.T
-        elif parts == ["shared", "embedding"]:
-            parts = ["shared", "weight"]
+        elif parts[-1] == "embedding":
+            parts[-1] = "weight"
         out[".".join(parts)] = torch.tensor(arr)
-    want = _shapes(cfg)
+    want = {k: shape for k, (shape, _) in _entries(cfg).items()}
     got = {k: tuple(v.shape) for k, v in out.items()}
     if got != want:
         diff = sorted(set(got.items()) ^ set(want.items()))
-        raise ValueError(f"flax tree does not fit {cfg}: {diff[:6]}")
+        target = type(cfg).__name__ if isinstance(cfg, nn.Module) else cfg
+        raise ValueError(f"flax tree does not fit {target}: {diff[:6]}")
     return out
 
 
-def _shapes(cfg: RiporConfig) -> Dict[str, tuple]:
-    from ripor_tpu_torch.models.ripor import RiporModel
-    return {k: tuple(v.shape) for k, v in
-            RiporModel(cfg, device="meta").state_dict().items()}
+def _entries(cfg) -> Dict[str, tuple]:
+    """name -> (shape, dtype) of the state_dict of ``cfg`` (a RiporConfig,
+    for RiporModel(cfg) in float32, or a model)."""
+    if not isinstance(cfg, nn.Module):
+        from ripor_tpu_torch.models.ripor import RiporModel
+        cfg = RiporModel(cfg, device="meta")
+    return {k: (tuple(v.shape), v.dtype) for k, v in cfg.state_dict().items()}
 
 
-def _init_std(name: str, cfg: RiporConfig) -> float:
-    """std of the flax initializer behind state_dict entry ``name``;
+def _t5_std(name: str, t5) -> float:
+    """std of the T5 flax initializer behind state_dict entry ``name``;
     0.0 marks RMSNorm scales (ones)."""
-    t5 = cfg.t5
     leaf = name.split(".")[-2] if name.endswith(".weight") else None
     if name.endswith(".scale"):
         return 0.0
@@ -83,19 +97,68 @@ def _init_std(name: str, cfg: RiporConfig) -> float:
     return 1.0   # shared, rel_embedding, codebooks, start_embed
 
 
-def init_params(cfg: RiporConfig, generator: torch.Generator, device=None,
-                dtype=torch.float32) -> Dict[str, torch.Tensor]:
-    """Random state_dict mirroring the flax initializers; tensors on
-    ``device`` (the generator's device), floats in ``dtype`` except the
-    float32 RMSNorm scales."""
-    out = {}
-    for name, shape in _shapes(cfg).items():
-        std = _init_std(name, cfg)
+# flax's lecun_normal: a normal truncated to [-2, 2] stds, rescaled so the
+# truncated draw keeps variance 1 / fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+def _truncated_normal(shape, generator, device) -> torch.Tensor:
+    """A standard normal truncated to [-2, 2], by the inverse CDF of a
+    uniform draw (jax.random.truncated_normal's method)."""
+    lo, hi = (torch.special.ndtr(torch.tensor(v, dtype=torch.float64))
+              for v in (-2.0, 2.0))
+    u = torch.rand(shape, generator=generator, device=device,
+                   dtype=torch.float64)
+    return torch.special.ndtri(lo + (hi - lo) * u).float()
+
+
+def _draw(name: str, shape, target, generator, device) -> torch.Tensor:
+    """One entry of ``target``'s state_dict, drawn as its flax initializer
+    draws it (float32)."""
+    from ripor_tpu_torch.models.cross_encoder import T5SeqCrossEncoder
+    from ripor_tpu_torch.models.dense_encoder import T5DenseEncoder
+    from ripor_tpu_torch.models.ripor import RiporModel
+    t5 = None
+    if not isinstance(target, nn.Module):
+        t5 = target.t5
+    elif isinstance(target, RiporModel):
+        t5 = target.cfg.t5
+    elif isinstance(target, T5DenseEncoder):
+        t5 = target.cfg
+    elif isinstance(target, T5SeqCrossEncoder) and name.startswith("base."):
+        t5 = target.cfg.t5
+    if t5 is not None:
+        std = _t5_std(name, t5)
         if std == 0.0:
-            out[name] = torch.ones(shape, dtype=torch.float32, device=device)
+            return torch.ones(shape, device=device)
+        return torch.randn(shape, generator=generator, device=device) * std
+    # BERT families and the T5 classification head: flax's defaults
+    leaf = name.split(".")[-2] if "." in name else ""
+    if name.endswith(".scale"):
+        return torch.ones(shape, device=device)
+    if name.endswith(".bias"):
+        return torch.zeros(shape, device=device)
+    if leaf in ("word", "position", "type"):          # nn.Embed tables
+        return (torch.randn(shape, generator=generator, device=device)
+                * shape[1] ** -0.5)
+    return (_truncated_normal(shape, generator, device)          # Dense
+            * (shape[1] ** -0.5 / _TRUNC_STD))
+
+
+def init_params(cfg, generator: torch.Generator, device=None,
+                dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """Random state_dict mirroring the flax initializers, tensors on
+    ``device`` (the generator's device). ``cfg``: a RiporConfig — floats
+    in ``dtype``, except the float32 RMSNorm scales — or a model of any
+    ported family, whose entries' dtypes the draws take."""
+    out = {}
+    for name, (shape, entry_dtype) in _entries(cfg).items():
+        value = _draw(name, shape, cfg, generator, device)
+        if isinstance(cfg, nn.Module):
+            out[name] = value.to(entry_dtype)
         else:
-            out[name] = (torch.randn(shape, generator=generator,
-                                     device=device) * std).to(dtype)
+            out[name] = (value if name.endswith(".scale")
+                         else value.to(dtype))
     return out
 
 

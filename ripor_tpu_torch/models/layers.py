@@ -46,6 +46,18 @@ def dropout(x, rate: float, deterministic: bool,
                                                          device=x.device))
 
 
+def replay(generator: Optional[torch.Generator]
+           ) -> Optional[torch.Generator]:
+    """A new generator in ``generator``'s state (None stays None): a
+    forward handed it draws the masks another forward handed a replay of
+    the same state draws (train/losses.py)."""
+    if generator is None:
+        return None
+    g = torch.Generator(device=generator.device)
+    g.set_state(generator.get_state())
+    return g
+
+
 def _empty(shape, dtype, device):
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)

@@ -5,7 +5,8 @@ slice (SURVEY.md §7.2, BASELINE config #1): tokenizer -> corpus encode ->
 RQ DocIDs -> seq2seq training -> trie -> constrained-beam retrieval ->
 trec metrics. ``run_train_from_config`` is the generic single-phase
 trainer behind the ``train`` CLI (reference: t5_pretrainer/main.py), for
-the RiporModel loss families.
+every loss family: RiporModel's, the cross-encoder teachers' and the
+dense baselines'.
 """
 from __future__ import annotations
 
@@ -15,18 +16,25 @@ from typing import Dict, Optional
 import torch
 
 from ripor_tpu_torch.data.collators import (
+    BertBceCollator,
     MarginMSECollator,
     PretrainCollator,
     Seq2SeqCollator,
+    T5SeqBceCollator,
+    batches_from_bce,
     batches_from_seq2seq,
     batches_from_teacher_examples,
 )
-from ripor_tpu_torch.data.datasets import (Collection, Seq2SeqExamples,
+from ripor_tpu_torch.data.datasets import (BceExamples, Collection,
+                                           Seq2SeqExamples,
                                            TeacherScoreExamples,
                                            load_docid_to_smtid, load_qrel)
 from ripor_tpu_torch.decode.beam import resolve_device
 from ripor_tpu_torch.models.config import RiporConfig, T5Config
 from ripor_tpu_torch.models.convert import init_params
+from ripor_tpu_torch.models.cross_encoder import (BertCrossEncoder,
+                                                  T5SeqCrossEncoder)
+from ripor_tpu_torch.models.dense_encoder import T5DenseEncoder
 from ripor_tpu_torch.models.ripor import RiporModel
 from ripor_tpu_torch.pipeline.recipe import (
     Workspace,
@@ -41,7 +49,6 @@ from ripor_tpu_torch.pipeline.recipe import (
     stage_train,
 )
 from ripor_tpu_torch.train.checkpoint import load_params
-from ripor_tpu_torch.train.losses import NOT_PORTED
 from ripor_tpu_torch.train.trainer import TrainConfig
 
 
@@ -124,30 +131,32 @@ def run_train_from_config(cfg_dict: Dict, device=None
     ``workspace/checkpoints/<phase_name>``. Trains in float32 on
     ``device`` (default "cuda", which raises without CUDA).
 
-    loss_type selects the (dataset, collator) family:
-      t5seq_aq_encoder_{margin_mse,lng_knp_margin_mse,ranknet} — a
-        teacher-score trainset (reference MarginMSEforT5SeqAQ*)
-      t5seq_aq_encoder_seq2seq — a {"docid","query"} JSONL
-      t5seq_pretrain_margin_mse — doc-text pairs (PretrainCollator; with
-        ``prefix_len`` the docs' smtid prefixes and the commit loss)
-    The teacher and baseline families (NOT_PORTED) raise.
+    loss_type selects the (model, dataset, collator) family:
+      t5seq_aq_encoder_{margin_mse,lng_knp_margin_mse,ranknet} — RiporModel
+        + a teacher-score trainset (reference MarginMSEforT5SeqAQ*)
+      t5seq_aq_encoder_seq2seq — RiporModel + a {"docid","query"} JSONL
+      t5seq_pretrain_margin_mse / margin_mse / kldiv — doc-text pairs
+        (PretrainCollator; with ``prefix_len`` the docs' smtid prefixes
+        and the commit loss; margin_mse/kldiv train the T5DenseEncoder
+        baseline, reference t5model_encoder.py)
+      t5seq_bce / bert_bce — the cross-encoder teachers (T5SeqCrossEncoder,
+        BertCrossEncoder) on a bce_examples TSV (reference
+        marco_train_t5seq_cross_encoder.sh)
 
     Keys: workspace, queries_dir, loss_type, examples_path (docs_dir for
-    pretraining); optional model_config (a RiporConfig JSON; default a
-    4+4-layer d_model 256 model with M, K, vocab_size), init_checkpoint
-    (params.pt or the JAX package's Orbax tree), batch_size, epochs,
-    max_length, seed (of the initial params), learning_rate, total_steps,
-    grad_accum, smtid_as_docid, prefix_len, phase_name."""
-    loss_type = cfg_dict["loss_type"]
-    if loss_type in NOT_PORTED:
-        raise NotImplementedError(
-            f"loss_type {loss_type!r} trains a teacher or dense-baseline "
-            "model, which ripor_tpu_torch does not port yet (ROADMAP.md "
-            "Queue 1 item 9)")
+    pretraining, the dense baselines and bert_bce); optional model_config
+    (a RiporConfig JSON; default a 4+4-layer d_model 256 model with M, K,
+    vocab_size), bert_geometry (BertCrossEncoder kwargs; the vocabulary is
+    the tokenizer's), init_checkpoint (params.pt or the JAX package's
+    Orbax tree), batch_size, epochs, max_length, seed (of the initial
+    params), learning_rate, total_steps, grad_accum, smtid_as_docid,
+    prefix_len, phase_name. As in the JAX package, no bert_geometry.json
+    is written beside a bert_bce checkpoint (ROADMAP.md Queue 3)."""
     device = resolve_device(device)
     ws = Workspace(cfg_dict["workspace"])
     tok = load_tokenizer(ws.path("tokenizer.json"))
     queries = Collection(cfg_dict["queries_dir"])
+    loss_type = cfg_dict["loss_type"]
     batch_size = cfg_dict.get("batch_size", 64)
     epochs = cfg_dict.get("epochs", 1)
     max_length = cfg_dict.get("max_length", 64)
@@ -157,26 +166,52 @@ def run_train_from_config(cfg_dict: Dict, device=None
     if ws.has("docid_to_smtid.json"):
         docids, codes = load_docid_to_smtid(ws.path("docid_to_smtid.json"))
         d2c = dict(zip(docids, codes))
-    model_cfg = (RiporConfig.load(cfg_dict["model_config"])
-                 if "model_config" in cfg_dict else _small_cfg(
-                     cfg_dict.get("M", 32), cfg_dict.get("K", 256),
-                     cfg_dict.get("vocab_size", tok.vocab_size)))
 
-    if loss_type == "t5seq_pretrain_margin_mse":
+    def ripor_cfg() -> RiporConfig:
+        return (RiporConfig.load(cfg_dict["model_config"])
+                if "model_config" in cfg_dict else _small_cfg(
+                    cfg_dict.get("M", 32), cfg_dict.get("K", 256),
+                    cfg_dict.get("vocab_size", tok.vocab_size)))
+
+    model_cfg = None
+    if loss_type == "bert_bce":
+        model = BertCrossEncoder(vocab_size=tok.vocab_size, device=device,
+                                 **cfg_dict.get("bert_geometry", {}))
+        docs = Collection(cfg_dict["docs_dir"])
+        coll = BertBceCollator(tok, queries, docs, max_length=max_length)
+        batches = batches_from_bce(BceExamples(cfg_dict["examples_path"]),
+                                   coll, batch_size, epochs=epochs)
+    elif loss_type == "t5seq_bce":
+        model_cfg = ripor_cfg()
+        model = T5SeqCrossEncoder(model_cfg, device=device)
+        coll = T5SeqBceCollator(tok, queries, d2c, max_length=max_length)
+        batches = batches_from_bce(BceExamples(cfg_dict["examples_path"]),
+                                   coll, batch_size, epochs=epochs)
+    elif loss_type in ("margin_mse", "kldiv", "t5seq_pretrain_margin_mse"):
+        model_cfg = ripor_cfg()
         docs = Collection(cfg_dict["docs_dir"])
         examples = TeacherScoreExamples(cfg_dict["examples_path"])
-        prefix_len = cfg_dict.get("prefix_len", 0)
-        coll = PretrainCollator(tok, queries, docs, max_length=max_length,
-                                docid_to_codes=d2c if prefix_len else None,
-                                prefix_len=prefix_len)
+        if loss_type == "t5seq_pretrain_margin_mse":
+            model = RiporModel(model_cfg, device=device)
+            prefix_len = cfg_dict.get("prefix_len", 0)
+            coll = PretrainCollator(tok, queries, docs, max_length=max_length,
+                                    docid_to_codes=d2c if prefix_len else None,
+                                    prefix_len=prefix_len)
+        else:
+            model = T5DenseEncoder(model_cfg.t5, device=device)
+            coll = PretrainCollator(tok, queries, docs, max_length=max_length)
         batches = batches_from_teacher_examples(examples, coll, batch_size,
                                                 epochs=epochs)
     elif loss_type == "t5seq_aq_encoder_seq2seq":
+        model_cfg = ripor_cfg()
+        model = RiporModel(model_cfg, device=device)
         examples = Seq2SeqExamples(cfg_dict["examples_path"])
         coll = Seq2SeqCollator(tok, d2c, max_length=max_length)
         batches = batches_from_seq2seq(examples, coll, batch_size,
                                        epochs=epochs)
     else:
+        model_cfg = ripor_cfg()
+        model = RiporModel(model_cfg, device=device)
         smtid_as_docid = cfg_dict.get("smtid_as_docid", False)
         examples = TeacherScoreExamples(cfg_dict["examples_path"],
                                         smtid_as_docid=smtid_as_docid)
@@ -188,11 +223,11 @@ def run_train_from_config(cfg_dict: Dict, device=None
         batches = batches_from_teacher_examples(examples, coll, batch_size,
                                                 epochs=epochs)
 
-    model = RiporModel(model_cfg, device=device)
     if "init_checkpoint" in cfg_dict:
-        params = load_params(cfg_dict["init_checkpoint"], model_cfg)
+        params = load_params(cfg_dict["init_checkpoint"], model_cfg,
+                             model=model)
     else:
-        params = init_params(model_cfg,
+        params = init_params(model,
                              torch.Generator(device=device).manual_seed(seed),
                              device=device)
     tcfg = TrainConfig(loss_type=loss_type,

@@ -22,7 +22,7 @@ from __future__ import annotations
 import json
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -177,17 +177,20 @@ def stage_build_trie(ws: Workspace, codes: np.ndarray, K: int) -> DocIdTrie:
 
 
 def stage_train(ws: Workspace, phase_name: str, model, params,
-                tcfg: TrainConfig, batches: Iterable[Dict], cfg: RiporConfig,
-                rng_seed: int = 0, mesh=None, anchor_params=None
-                ) -> Dict:
+                tcfg: TrainConfig, batches: Iterable[Dict],
+                cfg: Optional[RiporConfig], rng_seed: int = 0, mesh=None,
+                anchor_params=None) -> Dict:
     """Train one phase -> its params (a state_dict of CPU tensors), saved
-    to ``checkpoints/<phase_name>`` (params.pt + config.json). An existing
-    checkpoint there (params.pt, or the JAX package's Orbax tree) is
-    restored instead. ``model``: the RiporModel to train, on its device."""
+    to ``checkpoints/<phase_name>`` (params.pt, and config.json when
+    ``cfg`` is given). An existing checkpoint there (params.pt, or the JAX
+    package's Orbax tree) is restored instead. ``model``: the model to
+    train, on its device — a RiporModel (``cfg`` its config) or a teacher
+    or baseline model (``cfg`` None for the BERT families, as the JAX
+    package passes it)."""
     ckpt_dir = ws.path(f"checkpoints/{phase_name}")
     if (ckpt_dir / "params.pt").exists() or (ckpt_dir / "params").exists():
         ws.log(f"{phase_name}: restoring existing checkpoint")
-        return load_params(ckpt_dir, cfg)
+        return load_params(ckpt_dir, cfg, model=model)
     ws.log(f"{phase_name}: training")
     trainer = Trainer(model, tcfg, params, mesh=mesh,
                       anchor_params=anchor_params,

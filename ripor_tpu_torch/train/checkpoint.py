@@ -3,8 +3,10 @@
 Counterpart of ripor_tpu/train/checkpoint.py. A checkpoint directory
 (``save_params``/``load_params``) holds
 
-  params.pt      a RiporModel state_dict of CPU tensors (``torch.save``)
-  config.json    the RiporConfig (``RiporConfig.to_json``)
+  params.pt      a state_dict of CPU tensors (``torch.save``) of any
+                 family: RiporModel, or a teacher or baseline model
+  config.json    the RiporConfig (``RiporConfig.to_json``), where the
+                 model has one
 
 ``CheckpointManager`` keeps a training run's states, one directory a step
 (``<step>/state.pt``: step, params and the optimizer state, written to a
@@ -14,7 +16,8 @@ previous checkpoint the latest), pruned to ``max_to_keep``.
 ``load_params`` also reads a checkpoint the JAX package saved: an Orbax
 ``StandardCheckpointer`` tree under ``params/`` (OCDBT key-value store,
 zarr arrays). It reads each leaf through ``tensorstore``, imported only
-there, and maps the tree with ``params_from_jax``. ``params.pt`` is read
+there, and maps the tree with ``params_from_jax`` onto the model it is
+for. ``params.pt`` is read
 first when both exist. ``resize_codebooks`` changes the DocID geometry
 between phases.
 """
@@ -28,6 +31,7 @@ from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from ripor_tpu_torch.models.config import RiporConfig
 from ripor_tpu_torch.models.convert import params_from_jax
@@ -102,11 +106,14 @@ def save_params(path: str | Path, params: Mapping[str, torch.Tensor],
         (path / "config.json").write_text(config.to_json())
 
 
-def load_params(path: str | Path,
-                cfg: Optional[RiporConfig] = None) -> Dict[str, torch.Tensor]:
-    """State dict for ``RiporModel(cfg)`` from a checkpoint directory:
-    ``params.pt`` when it exists, else the JAX package's Orbax ``params/``
-    (``cfg`` defaults to ``path/config.json``; the tree must fit it)."""
+def load_params(path: str | Path, cfg: Optional[RiporConfig] = None,
+                model: Optional[nn.Module] = None
+                ) -> Dict[str, torch.Tensor]:
+    """State dict from a checkpoint directory: ``params.pt`` (of any
+    family) when it exists, else the JAX package's Orbax ``params/``,
+    converted for ``model`` when one is given (a model of any ported
+    family, e.g. a BertCrossEncoder teacher; the tree must fit it), else
+    for ``RiporModel(cfg)`` (``cfg`` defaults to ``path/config.json``)."""
     path = Path(path).absolute()
     if (path / PARAMS_FILE).exists():
         return torch.load(path / PARAMS_FILE, map_location="cpu",
@@ -114,9 +121,10 @@ def load_params(path: str | Path,
     if not (path / "params").is_dir():
         raise FileNotFoundError(f"no {PARAMS_FILE} and no Orbax params/ "
                                 f"directory in {path}")
-    if cfg is None:
+    if model is None and cfg is None:
         cfg = RiporConfig.load(path / "config.json")
-    return params_from_jax(read_orbax_tree(path / "params"), cfg)
+    return params_from_jax(read_orbax_tree(path / "params"),
+                           model if model is not None else cfg)
 
 
 def read_orbax_tree(directory: str | Path) -> Dict:

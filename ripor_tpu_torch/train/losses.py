@@ -3,12 +3,14 @@ scalars (the contract the trainer sums with per-task weights; reference
 arguments.py:109-141 sets all weights 1.0, tasks/trainer.py:232-243 does
 the weighted sum).
 
-Port of ripor_tpu/train/losses.py's RiporModel losses. Loss map
-(reference -> here):
+Port of ripor_tpu/train/losses.py. Loss map (reference -> here):
   T5SeqPretrainEncoder.forward      (t5_generative_retriever.py:708-769) -> pretrain_margin_mse
   T5SeqAQEncoderForMarginMSE        (:863-884)                            -> margin_mse
   T5SeqAQEncoderForSeq2Seq          (:999-1019)                           -> seq2seq_ce
   T5SeqAQEncoderForLngKnpMarginMSE  (:908-966)                            -> lng_knp_margin_mse
+  CrossEncoder / T5SeqCrossEncoder  (cross_encoder.py:17-23, 75-92)       -> bert_bce, t5seq_bce
+  T5ModelEncoder(ForKLDiv)          (t5model_encoder.py:36-99)            -> margin_mse, kldiv
+                                                                             (LOSS_FNS keys; models/dense_encoder.py)
 A loss takes ``(model, batch, train, generator)``: batches are dicts of
 fixed-shape tensors on the model's device, ``generator`` the dropout
 generator of the step (used when ``train``).
@@ -27,17 +29,11 @@ from typing import Dict, Optional
 
 import torch
 
+from ripor_tpu_torch.models.cross_encoder import bce_loss
+from ripor_tpu_torch.models.dense_encoder import (t5_dense_kldiv,
+                                                  t5_dense_margin_mse)
+from ripor_tpu_torch.models.layers import replay as _replay
 from ripor_tpu_torch.models.ripor import RiporModel
-
-
-def _replay(generator: Optional[torch.Generator]
-            ) -> Optional[torch.Generator]:
-    """A new generator in ``generator``'s state (None stays None)."""
-    if generator is None:
-        return None
-    g = torch.Generator(device=generator.device)
-    g.set_state(generator.get_state())
-    return g
 
 
 def _query_hiddens(model: RiporModel, batch: Dict, train: bool, generator,
@@ -215,18 +211,28 @@ def ranknet(model: RiporModel, batch: Dict, train: bool = True,
     return {"rank": torch.log1p(torch.exp(-(pos - neg))).mean()}
 
 
-# loss types whose models (cross-encoder teachers, the T5 dense-encoder
-# baseline) are not ported yet
-NOT_PORTED = ("t5seq_bce", "bert_bce", "margin_mse", "kldiv")
+def t5seq_bce(model, batch: Dict, train: bool = True,
+              generator: Optional[torch.Generator] = None
+              ) -> Dict[str, torch.Tensor]:
+    """BCE classification for the T5SeqCrossEncoder teacher (reference
+    loss_type=t5seq_bce; modeling/cross_encoder.py:75-92). Batch:
+    query_ids/query_mask [B, L]; codes [B, m]; labels [B] in {0, 1}."""
+    logits = model(batch["query_ids"], batch["query_mask"], batch["codes"],
+                   deterministic=not train, generator=_replay(generator))
+    return {"cls": bce_loss(logits, batch["labels"])}
 
 
-def _not_ported(loss_type: str):
-    def loss(model, batch: Dict, train: bool = True, generator=None):
-        raise NotImplementedError(
-            f"loss {loss_type!r} trains a teacher or dense-baseline model, "
-            "which ripor_tpu_torch does not port yet (ROADMAP.md Queue 1 "
-            "item 9)")
-    return loss
+def bert_bce(model, batch: Dict, train: bool = True,
+             generator: Optional[torch.Generator] = None
+             ) -> Dict[str, torch.Tensor]:
+    """BCE classification for the BERT cross-encoder teacher (reference
+    CrossEncoder.forward, modeling/cross_encoder.py:17-23, loss_type=
+    bert_bce). Batch: input_ids/attention_mask [B, L]; optional
+    token_type_ids; labels [B] in {0, 1}."""
+    logits = model(batch["input_ids"], batch["attention_mask"],
+                   batch.get("token_type_ids"), deterministic=not train,
+                   generator=_replay(generator))
+    return {"cls": bce_loss(logits, batch["labels"])}
 
 
 LOSS_FNS = {
@@ -238,6 +244,9 @@ LOSS_FNS = {
     "t5seq_pretrain_margin_mse": pretrain_margin_mse,
     "t5seq_aq_encoder_ranknet": ranknet,
     # teacher / baseline families (reference arguments.py:81-100 whitelist
-    # names)
-    **{name: _not_ported(name) for name in NOT_PORTED},
+    # names): the trainer is model-agnostic — pass the matching model
+    "t5seq_bce": t5seq_bce,
+    "bert_bce": bert_bce,
+    "margin_mse": t5_dense_margin_mse,   # T5DenseEncoder baseline
+    "kldiv": t5_dense_kldiv,             # T5DenseEncoder (KLDiv) baseline
 }

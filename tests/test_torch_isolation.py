@@ -1,7 +1,7 @@
-"""The port stands alone: it imports no JAX and no ripor_tpu module (nor,
-at import, tensorstore or tokenizers, which the card's machine lacks), builds
-no kernel at import, runs on CUDA unless told otherwise, and launches no
-kernel for CPU tensors."""
+"""The port stands alone: it imports no JAX, no transformers and no
+ripor_tpu module (nor, at import, tensorstore, tokenizers or safetensors,
+which the card's machine may lack), builds no kernel at import, runs on
+CUDA unless told otherwise, and launches no kernel for CPU tensors."""
 import os
 import subprocess
 import sys
@@ -51,7 +51,13 @@ def test_no_jax_flax_or_reference_modules_imported():
             "ripor_tpu_torch.evaluation.retriever",
             "ripor_tpu_torch.evaluation.dev_eval",
             "ripor_tpu_torch.evaluation.hnsw",
-            "ripor_tpu_torch.evaluation.bm25"} <= set(mods)
+            "ripor_tpu_torch.evaluation.bm25",
+            "ripor_tpu_torch.models.bert",
+            "ripor_tpu_torch.models.cross_encoder",
+            "ripor_tpu_torch.models.dense_encoder",
+            "ripor_tpu_torch.models.import_hf",
+            "ripor_tpu_torch.evaluation.reranker",
+            "ripor_tpu_torch.evaluation.rerank_tasks"} <= set(mods)
     r = _run(f"""
         import importlib, sys
         for m in {mods!r}:
@@ -60,7 +66,8 @@ def test_no_jax_flax_or_reference_modules_imported():
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                             "ripor_tpu", "tensorstore",
-                                            "tokenizers"))
+                                            "tokenizers", "transformers",
+                                            "safetensors"))
         print("BAD", bad)
         assert not bad, bad
     """)
@@ -105,6 +112,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         RetrievalEngine(cfg, sd, HashTokenizer(100), build_trie(codes, 8),
                         [str(i) for i in range(20)],
                         ServeConfig(num_beams=4, topk=4, batch_sizes=(1,)))
+    from ripor_tpu_torch.evaluation.reranker import (load_bert_teacher,
+                                                     rerank_query_smtids)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_bert_teacher("no_checkpoint_here", 100)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rerank_query_smtids(cfg, sd, HashTokenizer(100), None, {})
 
 
 def test_cpu_run_launches_no_kernel():

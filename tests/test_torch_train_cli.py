@@ -228,13 +228,30 @@ def test_seq2seq_branch(workspace):
 
 
 def test_train_refusals(workspace):
+    """Without CUDA the default device refuses; every loss type trains, the
+    teacher and baseline types their own model family (held against the
+    JAX package in tests/test_torch_rerank.py)."""
     cfg, path = workspace["config"]("refused")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             run_train_from_config(cfg)
         with pytest.raises(RuntimeError, match="CUDA"):
             cli(["train", "--config", path])
-    for loss_type in ("bert_bce", "t5seq_bce", "margin_mse", "kldiv"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            run_train_from_config(dict(cfg, loss_type=loss_type),
-                                  device="cpu")
+    tmp = workspace["tmp"]
+    (tmp / "bce.tsv").write_text("".join(
+        f"q{q}\td{(q + k) % N_DOCS}\t{int(k == 0)}\n"
+        for q in range(N_QUERIES) for k in range(2)))
+    family = {"bert_bce": "pooler.weight", "t5seq_bce": "head.Dense_0.weight",
+              "margin_mse": "start_embed", "kldiv": "start_embed"}
+    for loss_type, key in family.items():
+        run = {k: v for k, v in cfg.items() if k != "init_checkpoint"}
+        run.update(loss_type=loss_type, phase_name=f"family_{loss_type}",
+                   bert_geometry=dict(d_model=32, num_layers=1, num_heads=2,
+                                      d_ff=64, max_position=16))
+        if loss_type.endswith("bce"):
+            run["examples_path"] = str(tmp / "bce.tsv")
+        out = run_train_from_config(run, device="cpu")
+        assert key in out, (loss_type, sorted(out)[:5])
+        assert ("base.codebooks" in out) == (loss_type == "t5seq_bce")
+        assert "codebooks" not in out, loss_type
+        assert all(torch.isfinite(v).all() for v in out.values()), loss_type
