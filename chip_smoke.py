@@ -18,10 +18,14 @@ nonzero and no result line is printed:
      f32 at two slots t; K7 in bf16, int8 and on narrow blocks; then the
      slabs no stage holds (slot chunks, one layer): K2 and K4 at t5-3b
      widths in bf16 and int8 rows and at t5-large in f32, K5 and K8 at
-     t5-large in f32 and t5-3b in bf16. Time kernel, plain version and
-     one PyTorch call of the same function where there is one (advanced
-     indexing for the gathers, scaled_dot_product_attention for K5 and
-     K8): a yardstick the port never uses;
+     t5-large in f32 and t5-3b in bf16; then the kernels of phase 11's
+     searches at their own shapes (pipeline_searches: B 4 and 8, beam 8,
+     10 and 100, t5-base and the recipe's small model), at every step t
+     with its cache of Mc slots: K1-K3 on the megarow path, K5, K3, K6 on
+     the non-deferred path of the prefix-4 searches. Time kernel, plain
+     version and one PyTorch call of the same function where there is
+     one (advanced indexing for the gathers, scaled_dot_product_attention
+     for K5 and K8): a yardstick the port never uses;
   3. agreement on a small input: the port's beam search through the
      kernels on the card against its plain path on the CPU (the path the
      CPU tests hold against the JAX package), on the megarow and deferred
@@ -97,7 +101,29 @@ nonzero and no result line is printed:
      processes: ``train --config`` bert_bce, ``rerank`` (equal to
      rerank_pairs in process), ``rerank-task`` on two ranks at once +
      ``rerank-task-merge`` (equal to one rank), and the RIPOR self-rerank
-     task + merge (equal to rerank_query_smtids).
+     task + merge (equal to rerank_query_smtids);
+ 11. the pipeline, whose beam searches launch K1-K3 (megarow) and, at
+     prefix 4, K5, K3, K6 (non-deferred): (a) ``datagen`` as
+     a process on phase 7's workspace over phase 10's teacher trainset
+     (16 queries x 100 docids), beam 100, prefix lengths 4/8/16/32, with
+     the self teacher and phase 10's BERT teacher (a text for each of the
+     100,000 docs), each file equal to datagen_round in process (same
+     smtids, scores within 1e-5); (b) run_full_recipe at
+     ripor_base(M=32, K=256) with a MiniLM-L6 teacher on
+     tests/test_full_recipe.py's corpus at 2,048 docs and 128 queries,
+     every epoch count 1, beam = topk = 100, curriculum 4/8/16/32,
+     teacher-scale calibration, prefix_eval (4, 8) and the teacher-margin
+     gate open (one teacher epoch leaves the margin at rounding level):
+     its artifacts,
+     checkpoints and finite metrics, a resume that trains nothing, and
+     the seconds of each stage; (c) ``full-recipe`` as a process at
+     tests/test_full_recipe.py::RECIPE_KW on its 24-doc corpus, which
+     must reach that test's floors; (d) ``pipeline`` over phase 7's
+     workspace (retrieve at beam 1000 -> evaluate -> datagen), resumed,
+     re-run from a stage, and equal to the subcommands run directly. The
+     counters are zeroed just before (a)'s in-process rounds and (b)'s
+     run and read just after, and must equal the launches of the
+     searches that phase 2 checked (decode_launches).
 
 Prints the card's name and power limit (nvidia-smi), per-phase lines, then
 a ``{"kernels": [...]}`` line and, last, the contract line
@@ -676,6 +702,160 @@ def write_attend_checks(results, g):
         torch.cuda.empty_cache()
 
 
+def decode_plan(P, cache_segments=4):
+    """The steps of a default-path search of P steps with exact rows, as
+    make_beam_search_fn takes them: (megarow, [(t, Mc), ...]), Mc the
+    slots of step t's cache. Megarow when every segment span is even,
+    else the non-deferred path."""
+    from ripor_tpu_torch.decode.beam import _segment_bounds
+    bounds = _segment_bounds(P, cache_segments)
+    spans = list(zip([0] + bounds[:-1], bounds))
+    return (all((hi - lo) % 2 == 0 for lo, hi in spans),
+            [(t, hi) for lo, hi in spans for t in range(lo, hi)])
+
+
+def decode_launches(Lw, P, searches):
+    """Launches of ``searches`` such searches over an Lw-layer decoder.
+    Megarow: K1 once a step, K2 once a layer a step, K3 once a step but
+    the last. Non-deferred: K5 once a layer a step, K3 and K6 once a step
+    but the last."""
+    megarow, steps = decode_plan(P)
+    n = len(steps)
+    per = ({"reorder_cache_all": n, "step_attention_seq": n * Lw,
+            "beam_gather_rows": n - 1} if megarow else
+           {"step_attention_fused": n * Lw, "beam_gather_rows": n - 1,
+            "beam_gather_update": n - 1})
+    return {k: v * searches for k, v in per.items()}
+
+
+def sum_counts(parts):
+    out = {}
+    for part in parts:
+        for k, n in part.items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def pipeline_searches(sz):
+    """The bf16 exact-row searches of phase 11 as ((F, H, L), B, N, P):
+    (a) and (d) datagen_round at batch 4 and beam sz["beam"]; (b)
+    datagen_round at batch 4 and beam min(num_beams, 10) over the
+    curriculum, and stage_retrieve at batch 8 and beam num_beams over the
+    full trie and each prefix_eval length; (c) the same two at RECIPE_KW's
+    model (the recipe's small config)."""
+    from ripor_tpu_torch.models import ripor_base
+    from ripor_tpu_torch.pipeline.full_recipe import _small_cfg
+
+    def width(c):
+        return (c.t5.inner_dim, c.t5.num_heads, c.t5.num_decoder_layers)
+    kw, fk = sz["recipe_kw"], sz["floors_kw"]
+    big = width(sz["recipe_cfg"] or ripor_base(M=M, K=K))
+    small_cfg = _small_cfg(fk["M"], fk["K"], fk["vocab_size"])
+    small = width(small_cfg)
+    small_plens = sorted({p for p in (4, 8, 16, 32) if p < fk["M"]}
+                         | {fk["M"]})
+    out = [(big, 4, sz["beam"], p) for p in sz["prefix_lengths"]]
+    out += [(big, 4, min(kw["num_beams"], 10), p) for p in kw["curriculum"]]
+    out += [(big, 8, kw["num_beams"], p) for p in (M, *kw["prefix_eval"])]
+    out += [(small, 4, min(fk["num_beams"], 10), p) for p in small_plens]
+    out += [(small, 8, fk["num_beams"], fk["M"])]
+    return list(dict.fromkeys(out))
+
+
+def pipeline_shape_checks(results, g, sz):
+    """Phase 2, the kernels of phase 11's searches at their shapes
+    (pipeline_searches): at every step t of each search, on its cache of
+    Mc slots with step t's biases (history slots >= t masked) and one
+    layer a step in turn, each kernel the step launches against its plain
+    version on random bf16 rows. Megarow: K1 and K3 bit-equal, K2 within
+    2e-2; non-deferred: K5 within 2e-2, K3 and K6 bit-equal (phase 2's
+    bars). One record per search and kernel: its worst error and steps."""
+    import torch
+    from ripor_tpu_torch.models.t5 import Decoder
+    from ripor_tpu_torch.ops import (beam_gather_rows, beam_gather_rows_plain,
+                                     beam_gather_update,
+                                     beam_gather_update_plain,
+                                     reorder_cache_all,
+                                     reorder_cache_all_plain,
+                                     step_attention_fused,
+                                     step_attention_fused_plain,
+                                     step_attention_seq,
+                                     step_attention_seq_plain)
+    bf16 = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda", dtype=bf16)
+
+    def close(name, got, want, tg):
+        err = (got.float() - want.float()).abs().max().item()
+        check(torch.allclose(got.float(), want.float(), rtol=2e-2,
+                             atol=2e-2), f"{name} {tg}: max abs err {err}")
+        return err
+
+    for (Fw, Hw, Lw), Bq, Nq, P in pipeline_searches(sz):
+        megarow, steps = decode_plan(P)
+        tag = f"phase 11 F={Fw} H={Hw} L={Lw} B={Bq} N={Nq} P={P}"
+        errs = {}
+        full_bias = torch.randn(Hw, P, P, generator=g, device="cuda")
+        for t, Mc in steps:
+            tg = f"{tag} t={t} Mc={Mc}"
+            layer, last = t % Lw, t == P - 1
+            bias_hist, bias_new = Decoder._step_biases(full_bias, t, Mc)
+            src = torch.randint(0, Nq, (Bq, Nq), generator=g, device="cuda",
+                                dtype=torch.int32)
+            q = randn(Bq, Nq, Fw)
+            if megarow:
+                RW = 2 * Fw
+                cache, kvg = randn(Bq, Nq, Lw, Mc, RW), randn(Bq, Nq, Lw * RW)
+                out = reorder_cache_all(kvg, cache, torch.empty_like(cache),
+                                        src, t)
+                ref = reorder_cache_all_plain(kvg, cache,
+                                              torch.empty_like(cache), src, t)
+                check(torch.equal(out, ref), f"reorder_cache_all {tg}")
+                errs.setdefault("reorder_cache_all", []).append(0.0)
+                args = (q, randn(Bq, Nq, RW), out, layer, bias_hist,
+                        bias_new, Hw, None)
+                errs.setdefault("step_attention_seq", []).append(close(
+                    "step_attention_seq", step_attention_seq(*args),
+                    step_attention_seq_plain(*args), tg))
+                if not last:
+                    rows = randn(Bq, Nq, Lw * RW)
+                    check(torch.equal(beam_gather_rows(rows, src),
+                                      beam_gather_rows_plain(rows, src)),
+                          f"beam_gather_rows {tg}")
+                    errs.setdefault("beam_gather_rows", []).append(0.0)
+                continue
+            cache = randn(Lw, 2, Bq, Nq, Mc, Fw)
+            args = (q, randn(Bq, Nq, Fw), randn(Bq, Nq, Fw), cache, layer,
+                    bias_hist, bias_new, Hw)
+            errs.setdefault("step_attention_fused", []).append(close(
+                "step_attention_fused", step_attention_fused(*args),
+                step_attention_fused_plain(*args), tg))
+            if last:
+                continue
+            G = Lw * 2 * Bq
+            src_rep = src.repeat(Lw * 2, 1)
+            rows = randn(G, Nq, Fw)
+            kvg = beam_gather_rows(rows, src_rep)
+            check(torch.equal(kvg, beam_gather_rows_plain(rows, src_rep)),
+                  f"beam_gather_rows {tg}")
+            planes = cache.view(G, Nq, Mc, Fw)
+            out, ref = torch.empty_like(planes), torch.empty_like(planes)
+            beam_gather_update(planes, kvg, src_rep, t, out)
+            beam_gather_update_plain(planes, kvg, src_rep, t, ref)
+            check(torch.equal(out, ref), f"beam_gather_update {tg}")
+            for name in ("beam_gather_rows", "beam_gather_update"):
+                errs.setdefault(name, []).append(0.0)
+        torch.cuda.synchronize()
+        for name, e in errs.items():
+            rec = {"max_abs_err": max(e), "steps": len(e),
+                   "path": "megarow" if megarow else "non_deferred"}
+            results.append((name, tag, rec))
+            print("path_shape_check", json.dumps({"kernel": name,
+                                                  "case": tag, **rec}))
+        torch.cuda.empty_cache()
+
+
 SMALL_RUNS = (                   # (path, make_beam_search_fn kwargs)
     ("megarow", dict(kv_cache_quant=None)),
     ("megarow", dict(kv_cache_quant="int8")),
@@ -829,6 +1009,26 @@ def check_results(tag, res):
         check(all(np.isfinite(s)), f"{tag}: non-finite score")
         check(all(a >= b for a, b in zip(s, s[1:])),
               f"{tag}: scores increase")
+
+
+def zero_launches():
+    from ripor_tpu_torch.ops import KERNEL_LAUNCHES
+    for k in KERNEL_LAUNCHES:
+        KERNEL_LAUNCHES[k] = 0
+
+
+def need_launches(tag, kernels, total=None):
+    """The launch counters since they were zeroed (the kernels that
+    launched); each of ``kernels`` must have launched. Adds every count to
+    ``total`` when given."""
+    from ripor_tpu_torch.ops import KERNEL_LAUNCHES
+    counts = {k: n for k, n in KERNEL_LAUNCHES.items() if n}
+    for k in kernels:
+        check(counts.get(k, 0) > 0, f"{tag}: kernel {k} never launched")
+    if total is not None:
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    return counts
 
 
 def main_path(world, launches):
@@ -1057,7 +1257,6 @@ def cli_phase(world, launches, tmp):
     import torch
     from ripor_tpu_torch.data.datasets import save_docid_to_smtid
     from ripor_tpu_torch.data.tokenizer import WordTokenizer
-    from ripor_tpu_torch.ops import KERNEL_LAUNCHES
     from ripor_tpu_torch.pipeline import load_tokenizer
     from ripor_tpu_torch.serve import RetrievalEngine, ServeConfig, serve_http
     from ripor_tpu_torch.train import load_params, save_params
@@ -1066,16 +1265,6 @@ def cli_phase(world, launches, tmp):
     dev = world["device"]
     texts = world["queries"][:16]
     qids = [f"q{i}" for i in range(16)]
-
-    def zero():
-        for k in KERNEL_LAUNCHES:
-            KERNEL_LAUNCHES[k] = 0
-
-    def need(tag, kernels):
-        counts = dict(KERNEL_LAUNCHES)
-        for k in kernels:
-            check(counts[k] > 0, f"{tag}: kernel {k} never launched")
-        return counts
 
     ws = os.path.join(tmp, "ws")
     ckpt = os.path.join(ws, "checkpoints", "final")
@@ -1112,9 +1301,9 @@ def cli_phase(world, launches, tmp):
     sub_timing = timing_line(sub.stdout)
     sub_timing["process_s"] = time.monotonic() - t0
 
-    zero()
+    zero_launches()
     out = run_cli(base, "in process")
-    counts = need("cli retrieve", MEGAROW_KERNELS)
+    counts = need_launches("cli retrieve", MEGAROW_KERNELS)
     for k in MEGAROW_KERNELS:
         launches[k] = counts[k]
     timing = timing_line(out)
@@ -1170,7 +1359,7 @@ def cli_phase(world, launches, tmp):
                                       kv_cache_quant="int4",
                                       ckpt_dir=ckpt), device=dev)
     want4 = eng.retrieve_batch(texts)
-    zero()
+    zero_launches()
     server = serve_http(eng, port=0, block=False)
     host, port = server.server_address
     try:
@@ -1197,7 +1386,7 @@ def cli_phase(world, launches, tmp):
         server.shutdown()
         server.server_close()
         eng.stop()
-    counts = need("serve", MEGAROW_KERNELS)
+    counts = need_launches("serve", MEGAROW_KERNELS)
     check_results("serve int4", got4)
     check_same_run("HTTP answers vs retrieve_batch",
                    dict(zip(qids, got4)), dict(zip(qids, want4)))
@@ -2855,6 +3044,457 @@ def teacher_phase(world, tmp, sz=P10):
     print("phase10_s", time.monotonic() - t0)
 
 
+# ---- phase 11: the pipeline — flywheel datagen, the full recipe, runner ----
+
+# tests/test_full_recipe.py::RECIPE_KW, the JAX test's floors run
+RECIPE_KW = dict(M=8, K=16, vocab_size=300, phase1_epochs=6,
+                 teacher_epochs=12, s2s_epochs=40, mm_epochs=6,
+                 phase3_epochs=12, num_beams=8, topk=20, batch_size=8,
+                 seed=0, tokenizer_kind="word", teacher_lr=3e-3)
+# ... and its floors (tests/test_full_recipe.py:71-75)
+RECIPE_FLOORS = {"phase2": {"recall_10": 0.99, "mrr_10": 0.70},
+                 "phase3": {"recall_10": 0.99, "mrr_10": 0.30}}
+RECIPE_ARTIFACTS = (
+    "bm25_run.json", "pretrain_trainset_0.jsonl", "dense_run_phase1_0.json",
+    "pretrain_trainset_1.jsonl", "dense_run_phase1_1.json",
+    "phase2_mm_trainset.jsonl", "qid_to_reldocid_to_score.json",
+    "query_to_docid.train.jsonl", "dense_run_phase2.json")
+RECIPE_CHECKPOINTS = ("phase1_pretrain", "phase1_pretrain_1", "bert_teacher",
+                      "phase2_seq2seq", "phase2_margin_mse", "final")
+
+# The full-width run of phase 11. A rehearsal at a tiny size on the CPU
+# passes a smaller copy (every function below reads its sizes from here).
+P11 = dict(
+    device="cuda",
+    # (a) datagen on phase 7's workspace: beam 100 at every prefix length
+    # (the reference's flywheel decode, full_evaluate...sh:127-139), the
+    # BERT teacher over a text for each of the corpus's docs
+    beam=100, prefix_lengths=(4, 8, 16, 32), doc_words=(20, 60),
+    # (b) run_full_recipe at ripor_base(M=32, K=256) (None below), the
+    # teacher at MiniLM-L6 geometry, every epoch count at 1. One teacher
+    # epoch leaves its pos-neg margin at rounding level (either sign), so
+    # the margin gate is open: (b) tests the plumbing at full width, and
+    # (c) the learning
+    recipe_cfg=None, recipe_docs=2048, recipe_queries=128, recipe_vocab=4096,
+    teacher_geometry=dict(d_model=384, num_layers=6, num_heads=12,
+                          d_ff=1536, max_position=512),
+    recipe_kw=dict(phase1_epochs=1, teacher_epochs=1, s2s_epochs=1,
+                   mm_epochs=1, phase3_epochs=1, batch_size=16,
+                   num_beams=100, topk=100, curriculum=(4, 8, 16, 32),
+                   calibrate_teacher_scale=True, prefix_eval=(4, 8),
+                   min_teacher_margin=float("-inf"),
+                   tokenizer_kind="word", seed=SEED),
+    # (c) the JAX test's floors run; (d) the runner over phase 7's
+    # workspace
+    floors_kw=RECIPE_KW, pipeline_beam=1000, pipeline_prefix_lengths=(4, 8),
+)
+
+
+def recipe_corpus(root, n_docs, n_queries, seed=SEED):
+    """tests/test_full_recipe.py::corpus at n_docs docs and n_queries
+    queries (24 and 8 there): docs of five random words from a list of
+    twelve and a topic word; query q finds doc q * (n_docs // n_queries)
+    by its topic and first word. Returns (docs_dir, queries_dir,
+    qrel_path)."""
+    import os
+    rng = np.random.default_rng(seed)
+    words = ["alpha", "bravo", "charlie", "delta", "echo", "foxtrot",
+             "golf", "hotel", "india", "juliet", "kilo", "lima"]
+    docs_dir, queries_dir = (os.path.join(root, n) for n in ("docs",
+                                                             "queries"))
+    os.makedirs(docs_dir)
+    os.makedirs(queries_dir)
+    texts = []
+    with open(os.path.join(docs_dir, "raw.tsv"), "w") as f:
+        for i in range(n_docs):
+            text = " ".join(rng.choice(words, 5)) + f" topic{i}"
+            texts.append(text)
+            f.write(f"d{i}\t{text}\n")
+    qrel, step = {}, n_docs // n_queries
+    with open(os.path.join(queries_dir, "raw.tsv"), "w") as f:
+        for qi in range(n_queries):
+            di = qi * step
+            f.write(f"q{qi}\tfind topic{di} {texts[di].split()[0]}\n")
+            qrel[f"q{qi}"] = {f"d{di}": 1}
+    qrel_path = os.path.join(root, "qrel.json")
+    with open(qrel_path, "w") as f:
+        json.dump(qrel, f)
+    return docs_dir, queries_dir, qrel_path
+
+
+def lng_knp_file(ws, plen):
+    import os
+    return os.path.join(ws, f"lng_knp_qid_smtids_scores_{plen}.train.json")
+
+
+def check_lng_knp(tag, got, plen, want=None, tol=1e-5):
+    """A flywheel trainset (a list of examples): every smtid has ``plen``
+    codes, every score is finite, smtid_4_scores present iff plen > 4;
+    with ``want``, the same qids and per query the same smtids, every
+    score column within tol * max(1, |score|)."""
+    check(got, f"{tag}: no examples")
+    for ex in got:
+        check(len(ex["smtids"]) == len(ex["scores"]) > 0,
+              f"{tag}: {ex['qid']} smtids and scores differ in length")
+        check(all(len(s.split("_")) == plen for s in ex["smtids"]),
+              f"{tag}: an smtid without {plen} codes")
+        check(("smtid_4_scores" in ex) == (plen > 4),
+              f"{tag}: smtid_4_scores {'missing' if plen > 4 else 'set'}")
+        cols = [k for k in ex if k.endswith("scores")]
+        check(all(np.isfinite(ex[k]).all() for k in cols),
+              f"{tag}: non-finite score")
+    if want is None:
+        return
+    g = {ex["qid"]: ex for ex in got}
+    w = {ex["qid"]: ex for ex in want}
+    check(sorted(g) == sorted(w), f"{tag}: qids differ")
+    for q, we in w.items():
+        ge = g[q]
+        check(set(ge["smtids"]) == set(we["smtids"]),
+              f"{tag}: {q} smtids differ")
+        for col in (k for k in we if k.endswith("scores")):
+            gs = dict(zip(ge["smtids"], ge[col]))
+            err = max(abs(gs[s] - v) / max(1.0, abs(v))
+                      for s, v in zip(we["smtids"], we[col]))
+            check(err <= tol, f"{tag}: {q} {col} differ by {err}")
+
+
+def datagen_check(world, phase11, tmp, sz):
+    """Phase 11 (a): ``datagen`` as a process of its own on phase 7's
+    workspace (its checkpoint, 100,000-doc codes, 16 queries) over phase
+    10's teacher trainset (16 queries x 100 docids), at beam 100 and
+    prefix lengths 4/8/16/32, with ``--teacher self`` and ``--teacher
+    bert`` (phase 10's bert_bce checkpoint; --docs a text for every docid
+    of the corpus, since the beams reach any prefix group). Each file must
+    equal datagen_round in this process (same smtids, scores within
+    1e-5), which runs with the counters zeroed just before and read just
+    after: K1-K3 must launch."""
+    import os
+
+    import torch
+    from ripor_tpu_torch.data.datasets import Collection, load_docid_to_smtid
+    from ripor_tpu_torch.evaluation.reranker import (load_bert_teacher,
+                                                     rerank_pairs,
+                                                     self_rerank_pair_scores)
+    from ripor_tpu_torch.models import RiporConfig
+    from ripor_tpu_torch.pipeline import load_tokenizer
+    from ripor_tpu_torch.pipeline.flywheel import (datagen_round, read_jsonl,
+                                                   search_model)
+    from ripor_tpu_torch.train import load_params
+
+    dev = sz["device"]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    ws, qdir = os.path.join(tmp, "ws"), os.path.join(tmp, "queries")
+    trainset = os.path.join(tmp, "teacher_trainset.jsonl")
+    teacher = os.path.join(ws, "checkpoints", "teacher")
+    rng = np.random.default_rng(SEED + 11)
+    docs_dir = os.path.join(tmp, "docs11")
+    os.makedirs(docs_dir)
+    lo, hi = sz["doc_words"]
+    t0 = time.monotonic()
+    words = np.asarray(world["words"])
+    with open(os.path.join(docs_dir, "raw.tsv"), "w") as f:
+        for d in world["docids"]:
+            pick = rng.integers(0, len(words), rng.integers(lo, hi + 1))
+            f.write(f"{d}\t{' '.join(words[pick])}\n")
+    docs_s = time.monotonic() - t0
+    plens = [str(p) for p in sz["prefix_lengths"]]
+    base = ["datagen", "--workspace", ws, "--queries", qdir,
+            "--teacher-trainset", trainset, "--beam", str(sz["beam"]),
+            "--prefix-lengths", *plens, "--device", dev]
+    bert = ["--teacher", "bert", "--teacher-ckpt", teacher, "--docs",
+            docs_dir]
+    files, cli_timing = {}, {}
+    for name, extra in (("self", []), ("bert", bert)):
+        t0 = time.monotonic()
+        out = rerank_cli(base + extra, f"datagen {name}", repo)
+        cli_timing[name] = {"process_s": time.monotonic() - t0, "rounds": [
+            json.loads(ln.split(" ", 1)[1]) for ln in out.splitlines()
+            if ln.startswith("datagen_timing ")]}
+        files[name] = {p: read_jsonl(lng_knp_file(ws, p))
+                       for p in sz["prefix_lengths"]}
+
+    ckpt = os.path.join(ws, "checkpoints", "final")
+    cfg = RiporConfig.load(os.path.join(ckpt, "config.json"))
+    params = load_params(ckpt)
+    tok = load_tokenizer(os.path.join(ws, "tokenizer.json"))
+    docids, codes = load_docid_to_smtid(os.path.join(ws, "docid_to_smtid.json"))
+    d2c = dict(zip(docids, codes))
+    queries = Collection(qdir)
+    with open(trainset) as f:
+        q2d = {str(ex["qid"]): [str(d) for d in ex["docids"]]
+               for ex in map(json.loads, f)}
+    docs = Collection(docs_dir)
+    bert_fn = load_bert_teacher(teacher, tok.vocab_size, device=dev)
+    scorers = {
+        "self": lambda pairs: self_rerank_pair_scores(
+            cfg, params, tok, queries, d2c, pairs, batch_size=32,
+            max_length=64, device=dev),
+        "bert": lambda pairs: rerank_pairs(bert_fn, tok, queries, docs,
+                                           pairs, batch_size=32,
+                                           max_length=64)}
+    searcher = search_model(cfg, params, torch.bfloat16, dev)
+    rounds = []
+    zero_launches()
+    for name, score in scorers.items():
+        for plen in sz["prefix_lengths"]:
+            n_pairs = []
+
+            def counted(pairs):
+                n_pairs.append(len(pairs))
+                return score(pairs)
+            t0 = time.monotonic()
+            merged = datagen_round(cfg, searcher, tok, queries, q2d, codes,
+                                   docids, counted, prefix_len=plen,
+                                   num_beams=sz["beam"], batch_size=4,
+                                   device=dev)
+            sync(dev)
+            rounds.append({"teacher": name, "prefix_len": plen,
+                           "seconds": time.monotonic() - t0,
+                           "pairs_scored": n_pairs[0],
+                           "examples": len(merged)})
+            check_lng_knp(f"11a {name} p{plen}", files[name][plen], plen,
+                          want=list(map(dict, merged)))
+    launched = need_launches("11a datagen_round", MEGAROW_KERNELS, phase11)
+    # the steps that phase 2 checks (pipeline_searches) are these rounds'
+    want = sum_counts(decode_launches(cfg.t5.num_decoder_layers, p,
+                                      len(scorers) * -(-len(q2d) // 4))
+                      for p in sz["prefix_lengths"])
+    check(launched == want, f"11a: launches {launched}, not {want}")
+    del searcher, bert_fn
+    torch.cuda.empty_cache()
+    print("pipeline_datagen", json.dumps({
+        "queries": len(q2d), "docids_a_query": max(map(len, q2d.values())),
+        "beam": sz["beam"], "docs_written": len(world["docids"]),
+        "docs_s": docs_s, "cli": cli_timing, "in_process": rounds,
+        "launches": launched}))
+
+
+def recipe_run(ws, docs_dir, queries_dir, qrel_path, **kw):
+    """run_full_recipe with its workspace log recorded: -> (metrics,
+    [(monotonic seconds, message)], the printed output)."""
+    import contextlib
+    import io
+
+    from ripor_tpu_torch.pipeline import recipe
+    from ripor_tpu_torch.pipeline.full_recipe import run_full_recipe
+    records, buf = [], io.StringIO()
+    log = recipe.Workspace.log
+
+    def recording(self, msg):
+        records.append((time.monotonic(), msg))
+        log(self, msg)
+    recipe.Workspace.log = recording
+    try:
+        with contextlib.redirect_stdout(buf):
+            metrics = run_full_recipe(ws, docs_dir, queries_dir, qrel_path,
+                                      **kw)
+    finally:
+        recipe.Workspace.log = log
+    return metrics, records, buf.getvalue()
+
+
+def stage_seconds(records, t_end):
+    """Seconds from each workspace-log message to the next, summed by the
+    stage that message names (its text before ': ', ' (' or ' step ')."""
+    import re
+    out = {}
+    for (t, msg), t_next in zip(records, [t for t, _ in records[1:]]
+                                + [t_end]):
+        key = re.split(r": | \(| step \d", msg, maxsplit=1)[0][:60]
+        out[key] = out.get(key, 0.0) + (t_next - t)
+    return out
+
+
+def check_metrics(tag, metrics, keys):
+    check(sorted(metrics) == sorted(keys), f"{tag}: metrics {sorted(metrics)}")
+    for k, m in metrics.items():
+        check(set(m) == {"mrr_10", "recall_10", "recall_100"}
+              and all(np.isfinite(v) and 0 <= v <= 1 for v in m.values()),
+              f"{tag}: {k} {m}")
+
+
+def recipe_check(world, phase11, tmp, sz):
+    """Phase 11 (b): run_full_recipe at full width on the card: a
+    ripor_base(M=32, K=256) student from init_params, the BertCrossEncoder
+    teacher at MiniLM-L6 geometry, tests/test_full_recipe.py's corpus at
+    2,048 docs and 128 queries with the word tokenizer, every epoch count
+    1, batch 16, beam = topk = 100, curriculum 4/8/16/32, teacher-scale
+    calibration, prefix_eval (4, 8). Counters zeroed just before and read
+    just after: K1-K3 must launch. Every artifact and checkpoint of
+    tests/test_full_recipe.py::test_full_recipe_runs_and_holds_floors;
+    finite metrics; a second call returns the same metrics and trains
+    nothing. Prints the seconds of each stage from the workspace log."""
+    import os
+
+    import torch
+    from ripor_tpu_torch.models import ripor_base
+    from ripor_tpu_torch.pipeline.flywheel import read_jsonl
+
+    dev = sz["device"]
+    root = os.path.join(tmp, "recipe11")
+    os.makedirs(root)
+    corpus = recipe_corpus(root, sz["recipe_docs"], sz["recipe_queries"])
+    ws = os.path.join(root, "ws")
+    cfg = sz["recipe_cfg"] or ripor_base(M=M, K=K)
+    kw = dict(sz["recipe_kw"], cfg=cfg, vocab_size=sz["recipe_vocab"],
+              teacher_geometry=sz["teacher_geometry"], device=dev)
+    zero_launches()
+    t0 = time.monotonic()
+    metrics, records, _ = recipe_run(ws, *corpus, **kw)
+    sync(dev)
+    run_s = time.monotonic() - t0
+    launched = need_launches("11b run_full_recipe", MEGAROW_KERNELS, phase11)
+    plens = list(kw["curriculum"])
+    # datagen_round at batch 4 over every query, stage_retrieve at batch 8
+    # after phases 2 and 3: the searches of pipeline_searches
+    nq, Lw = sz["recipe_queries"], cfg.t5.num_decoder_layers
+    want = sum_counts(
+        [decode_launches(Lw, p, -(-nq // 4)) for p in plens]
+        + [decode_launches(Lw, p, 2 * -(-nq // 8))
+           for p in (cfg.M, *kw["prefix_eval"])])
+    check(launched == want, f"11b: launches {launched}, not {want}")
+    check_metrics("11b", metrics, [f"phase{p}{s}" for p in (2, 3)
+                                   for s in [""] + [f"_prefix{e}" for e in
+                                                    kw["prefix_eval"]]])
+    for name in RECIPE_ARTIFACTS + tuple(
+            os.path.basename(lng_knp_file(ws, p)) for p in plens):
+        check(os.path.exists(os.path.join(ws, name)), f"11b: no {name}")
+    for name in RECIPE_CHECKPOINTS + tuple(f"phase3_mnt_{p}" for p in plens):
+        check(os.path.exists(os.path.join(ws, "checkpoints", name,
+                                          "params.pt")),
+              f"11b: no checkpoint {name}")
+    rows = read_jsonl(os.path.join(ws, "pretrain_trainset_0.jsonl"))
+    check(rows and all(len(r["docids"]) == len(r["scores"]) >= 2
+                       and r["scores"][1:] == sorted(r["scores"][1:],
+                                                     reverse=True)
+                       for r in rows), "11b: pretrain trainset rows")
+    for p in plens:
+        check_lng_knp(f"11b p{p}", read_jsonl(lng_knp_file(ws, p)), p)
+    stages = stage_seconds(records, time.monotonic())
+    torch.cuda.empty_cache()
+
+    t0 = time.monotonic()
+    again, _, out = recipe_run(ws, *corpus, **kw)
+    resume_s = time.monotonic() - t0
+    check(again == metrics, f"11b resume: {again} != {metrics}")
+    check(": training" not in out and "datagen at prefix" not in out,
+          "11b resume trained or generated data again")
+    with open(os.path.join(ws, "checkpoints", "bert_teacher",
+                           "teacher_quality.json")) as f:
+        quality = json.load(f)
+    print("pipeline_recipe", json.dumps({
+        "docs": sz["recipe_docs"], "queries": sz["recipe_queries"],
+        "d_model": cfg.t5.d_model, "layers": cfg.t5.num_layers, "M": cfg.M,
+        "K": cfg.K, "teacher": sz["teacher_geometry"], "seconds": run_s,
+        "resume_s": resume_s, "metrics": metrics,
+        "teacher_quality": quality, "launches": launched,
+        "stage_s": stages}))
+
+
+def floors_check(tmp, sz):
+    """Phase 11 (c): ``full-recipe`` as a process of its own at
+    tests/test_full_recipe.py::RECIPE_KW on its 24-doc corpus, on the
+    card: phases 2 and 3 must reach that test's floors."""
+    import os
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(tmp, "floors11")
+    os.makedirs(root)
+    docs_dir, queries_dir, qrel_path = recipe_corpus(root, 24, 8)
+    conf = os.path.join(root, "recipe_kw.json")
+    with open(conf, "w") as f:
+        json.dump(sz["floors_kw"], f)
+    t0 = time.monotonic()
+    out = rerank_cli(["full-recipe", "--workspace", os.path.join(root, "ws"),
+                      "--docs", docs_dir, "--queries", queries_dir, "--qrel",
+                      qrel_path, "--config", conf, "--device", sz["device"]],
+                     "full-recipe", repo)
+    process_s = time.monotonic() - t0
+    lines = out.splitlines()
+    start = max(i for i, ln in enumerate(lines) if ln == "{")
+    metrics = json.loads("\n".join(lines[start:]))
+    check_metrics("11c", metrics, ["phase2", "phase3"])
+    for phase, floors in RECIPE_FLOORS.items():
+        for k, floor in floors.items():
+            check(metrics[phase][k] >= floor,
+                  f"11c: {phase} {k} {metrics[phase][k]} below {floor}")
+    print("pipeline_floors", json.dumps({
+        "metrics": metrics, "floors": RECIPE_FLOORS,
+        "process_s": process_s}))
+
+
+def runner_check(world, phase11, tmp, sz):
+    """Phase 11 (d): ``pipeline`` over phase 7's workspace: retrieve (beam
+    1000) -> evaluate -> datagen (self teacher). The second run runs no
+    stage, ``--from evaluate`` re-runs the last two, and each output
+    equals the subcommand run directly."""
+    import os
+
+    from ripor_tpu_torch.pipeline.flywheel import read_jsonl
+    ws, qdir = os.path.join(tmp, "ws"), os.path.join(tmp, "queries")
+    dev = ["--device", sz["device"]]
+    retrieve = ["retrieve", "--workspace", ws, "--queries", qdir, "--beam",
+                str(sz["pipeline_beam"]), "--topk", str(sz["pipeline_beam"])]
+    evaluate = ["evaluate", "--qrel", os.path.join(tmp, "qrel.json"),
+                "--run", os.path.join(ws, "run11.json")]
+    plens = sz["pipeline_prefix_lengths"]
+    datagen = ["datagen", "--workspace", ws, "--queries", qdir,
+               "--teacher-trainset", os.path.join(tmp, "teacher_trainset.jsonl"),
+               "--beam", str(sz["beam"]), "--prefix-lengths",
+               *map(str, plens)]
+    spec = os.path.join(tmp, "pipeline11.json")
+    with open(spec, "w") as f:
+        json.dump({"workspace": ws, "stages": [
+            {"name": "retrieve", "argv": retrieve + ["--run-name",
+                                                     "run11.json"],
+             "outputs": [os.path.join(ws, "run11.json")]},
+            {"name": "evaluate", "argv": evaluate},
+            {"name": "datagen", "argv": datagen,
+             "outputs": [lng_knp_file(ws, plens[-1])]}]}, f)
+    cmd = ["pipeline", "--config", spec] + dev
+    ran, outs = [], []
+    t0 = time.monotonic()
+    for extra in ([], [], ["--from", "evaluate"]):
+        out = run_cli(cmd + extra, "pipeline")
+        ran.append(int(out.split("pipeline complete (")[1].split()[0]))
+        outs.append(out)
+    pipeline_s = time.monotonic() - t0
+    check(ran == [3, 0, 2], f"11d: stages ran {ran}, not [3, 0, 2]")
+    mrr = [json.loads(o[o.index("{\n"):o.index("\n}") + 2])
+           for o in (outs[0], outs[2])]
+    files = {p: read_jsonl(lng_knp_file(ws, p)) for p in plens}
+    run_cli(retrieve + ["--run-name", "run11_direct.json"] + dev,
+            "direct retrieve")
+    check_same_run("11d retrieve", read_run(os.path.join(ws,
+                                                         "run11_direct.json")),
+                   read_run(os.path.join(ws, "run11.json")))
+    direct = json.loads(run_cli(evaluate, "direct evaluate"))
+    check(mrr == [direct, direct], f"11d evaluate: {mrr} vs {direct}")
+    run_cli(datagen + dev, "direct datagen")
+    for p in plens:
+        check_lng_knp(f"11d p{p}", read_jsonl(lng_knp_file(ws, p)), p,
+                      want=files[p])
+    print("pipeline_runner", json.dumps({
+        "stages_ran": ran, "mrr": direct, "seconds": pipeline_s}))
+
+
+def pipeline_phase(world, phase11, tmp, sz=P11):
+    """Phase 11: (a) datagen_check, (b) recipe_check, (c) floors_check,
+    (d) runner_check; the launches of K1-K3 in (a)'s and (b)'s runs go to
+    ``phase11``."""
+    t0 = time.monotonic()
+    parts = {}
+    for name, fn in (("a", lambda: datagen_check(world, phase11, tmp, sz)),
+                     ("b", lambda: recipe_check(world, phase11, tmp, sz)),
+                     ("c", lambda: floors_check(tmp, sz)),
+                     ("d", lambda: runner_check(world, phase11, tmp, sz))):
+        t1 = time.monotonic()
+        fn()
+        parts[name] = time.monotonic() - t1
+    print("phase11_s", json.dumps({"total": time.monotonic() - t0,
+                                   **parts}))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2888,6 +3528,7 @@ def main():
     non_deferred_checks(results, g)
     write_attend_checks(results, g)
     oversized_checks(results, g)
+    pipeline_shape_checks(results, g, P11)
     small_agreement()
     world = make_world()
     launches = {}
@@ -2901,6 +3542,8 @@ def main():
         phase9 = {}
         docid_phase(world, phase9, tmp)
         teacher_phase(world, tmp)
+        phase11 = {}
+        pipeline_phase(world, phase11, tmp)
 
     # kernel: (TPU kernel it replaces, case of the reported times, path
     # whose run gives the launches)
@@ -2935,7 +3578,8 @@ def main():
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "case": case,
-            "launches_rq_trie": phase9.get(name, 0)})
+            "launches_rq_trie": phase9.get(name, 0),
+            "launches_pipeline": phase11.get(name, 0)})
     print("total_s", time.monotonic() - t_all)
     print(smi.splitlines()[0])
     print(json.dumps({"kernels": kernels}))

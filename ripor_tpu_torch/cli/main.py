@@ -1,18 +1,19 @@
 """CLI entry points of the port: evaluate / retrieve / retrieve-merge /
 serve / train / e2e / index / merge-embs / aq-index / hnsw-index /
-dense-retrieve / rerank / rerank-task / rerank-task-merge.
+dense-retrieve / rerank / rerank-task / rerank-task-merge / datagen /
+pipeline / full-recipe.
 
-Port of ripor_tpu/cli/main.py's subcommands of the retrieval and dense
-paths, the DocID build, ``train``, ``e2e`` and the teacher's reranking,
-with the same flags and defaults, and one more on each subcommand that
-runs on a device (``retrieve``, ``serve``, ``train``, ``e2e``, ``index``,
-``aq-index``, ``dense-retrieve``, ``rerank``, ``rerank-task``):
+Port of ripor_tpu/cli/main.py's subcommands, with the same flags and
+defaults, and one more on each subcommand that runs on a device
+(``retrieve``, ``serve``, ``train``, ``e2e``, ``index``, ``aq-index``,
+``dense-retrieve``, ``rerank``, ``rerank-task``, ``datagen``,
+``full-recipe``, and ``pipeline``, which hands it to its stages):
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path, and
 without CUDA the default raises). Retrieval and encoding run the model in
 bfloat16, its params rounded to bf16 as ServeConfig.param_dtype does;
-training and the BertCrossEncoder teacher run in float32. The pipeline
-subcommands of the JAX CLI (full-recipe, pipeline, datagen) wait for
-their slice (ROADMAP.md Queue 1).
+``datagen``'s beam search runs in bfloat16 with float32 norm scales, as
+the JAX flywheel; training and the BertCrossEncoder teacher run in
+float32.
 
 Usage:
   python -m ripor_tpu_torch.cli.main retrieve --workspace ws --queries qdir \
@@ -38,6 +39,13 @@ Usage:
       --rank r --nranks R        # -> out/rerank_<r>.json, then
   python -m ripor_tpu_torch.cli.main rerank-task-merge \
       --task rerank_for_create_trainset --out-dir out --nranks R
+  python -m ripor_tpu_torch.cli.main datagen --workspace ws --queries qdir \
+      --teacher-trainset t.jsonl [--teacher bert --teacher-ckpt ck \
+      --docs ddir]      # -> ws/lng_knp_qid_smtids_scores_{4,8,16,32}.train.json
+  python -m ripor_tpu_torch.cli.main pipeline --config spec.json \
+      [--from STAGE]    # stages of this CLI, resumed from the manifest
+  python -m ripor_tpu_torch.cli.main full-recipe --workspace ws \
+      --docs ddir --queries qdir --qrel qrel.json [--config kw.json]
 """
 from __future__ import annotations
 
@@ -505,6 +513,116 @@ def cmd_rerank_task_merge(args):
     print(f"wrote {out}")
 
 
+def cmd_full_recipe(args):
+    """Phases 1-3 end-to-end (reference full_scripts/full_lng_knp_train_
+    pipline.sh chain; pipeline/full_recipe.py) with per-phase metrics
+    printed. ``--config``: a JSON object of run_full_recipe keywords."""
+    from ripor_tpu_torch.pipeline.full_recipe import run_full_recipe
+    overrides = json.loads(Path(args.config).read_text()) if args.config else {}
+    metrics = run_full_recipe(workspace=args.workspace, docs_dir=args.docs,
+                              queries_dir=args.queries, qrel_path=args.qrel,
+                              device=args.device, **overrides)
+    print(json.dumps(metrics, indent=2))
+
+
+def cmd_pipeline(args):
+    """Declarative multi-stage pipeline with manifest resume (replaces the
+    reference's chained full_scripts/*.sh; pipeline/runner.py). Each stage
+    is an argv of this CLI; ``--device`` is added to the stages whose
+    subcommand takes one and whose argv names none."""
+    from ripor_tpu_torch.pipeline.runner import run_pipeline
+
+    def cli(argv):
+        argv = list(argv)
+        if (argv and argv[0] in args.device_commands
+                and "--device" not in argv):
+            argv += ["--device", args.device]
+        main(argv)
+
+    spec = json.loads(Path(args.config).read_text())
+    ran = run_pipeline(spec, cli_main=cli, from_stage=args.from_stage)
+    print(f"pipeline complete ({len(ran)} stages ran)")
+
+
+def cmd_datagen(args):
+    """Phase-3 flywheel: D^B beam prefix candidates + D^R grouping, teacher
+    rescoring of EVERY (query, prefix, docid) triple, then decay merge +
+    lng_knp score attachment (replaces the reference's
+    t5seq_aq_get_qid_to_smtid_rankdata + cross_encoder_rerank_for_
+    qid_smtid_docids + aq_preprocess merge scripts; rerank.py:587-654).
+
+    Teacher: ``--teacher bert --teacher-ckpt DIR`` uses a BertCrossEncoder
+    checkpoint built at the tokenizer's vocabulary (the reference's MiniLM
+    role); the default ``--teacher self`` scores pairs with the phase
+    model's own rerank_score (self-distillation). Either way every doc
+    carries a true teacher score — no 0.0 defaults. Prints a
+    ``datagen_timing`` JSON line per prefix length: seconds and the pairs
+    the teacher scored."""
+    import torch
+
+    from ripor_tpu_torch.data.datasets import Collection, load_docid_to_smtid
+    from ripor_tpu_torch.evaluation.reranker import (
+        load_bert_teacher, rerank_pairs, self_rerank_pair_scores)
+    from ripor_tpu_torch.pipeline.flywheel import (datagen_round, read_jsonl,
+                                                   search_model, write_jsonl)
+    from ripor_tpu_torch.pipeline.recipe import load_tokenizer
+
+    device = resolve_device(args.device)
+    ws, cfg, params = _load_workspace_model(args.workspace, args.phase)
+    tok = load_tokenizer(ws.path("tokenizer.json"))
+    docids, codes = load_docid_to_smtid(ws.path("docid_to_smtid.json"))
+    queries = Collection(args.queries)
+    teacher_examples = read_jsonl(args.teacher_trainset)
+    qid_to_docids = {str(ex["qid"]): [str(d) for d in ex["docids"]]
+                     for ex in teacher_examples}
+    d2c = dict(zip(docids, codes))
+    searcher = search_model(cfg, params, torch.bfloat16, device)
+
+    if args.teacher == "bert":
+        if not args.teacher_ckpt:
+            raise SystemExit("--teacher bert requires --teacher-ckpt")
+        if not args.docs:
+            raise SystemExit("--teacher bert requires --docs (the teacher "
+                             "scores raw (query, document) text pairs)")
+        docs_coll = Collection(args.docs)
+        score_fn = load_bert_teacher(args.teacher_ckpt, tok.vocab_size,
+                                     device=device)
+
+        def score_pairs(pairs):
+            return rerank_pairs(score_fn, tok, queries, docs_coll, pairs,
+                                batch_size=args.batch_size * 8,
+                                max_length=args.max_length)
+    else:
+        def score_pairs(pairs):
+            return self_rerank_pair_scores(
+                cfg, params, tok, queries, d2c, pairs,
+                batch_size=args.batch_size * 8, max_length=args.max_length,
+                device=device)
+
+    n_pairs = []
+
+    def counted(pairs):
+        n_pairs.append(len(pairs))
+        return score_pairs(pairs)
+
+    for plen in args.prefix_lengths:
+        t0 = time.monotonic()
+        # as in the JAX CLI, --max-length reaches the teacher's pairs and
+        # not the beam search, whose queries encode at 64 positions
+        merged = datagen_round(cfg, searcher, tok, queries, qid_to_docids,
+                               codes, docids, counted, prefix_len=plen,
+                               num_beams=args.beam,
+                               batch_size=args.batch_size, decay=args.decay,
+                               device=device)
+        out_path = ws.path(f"lng_knp_qid_smtids_scores_{plen}.train.json")
+        write_jsonl(out_path, merged)
+        print(f"wrote {out_path} ({len(merged)} examples)")
+        print("datagen_timing", json.dumps({
+            "device": str(device), "prefix_len": plen,
+            "seconds": time.monotonic() - t0,
+            "pairs_scored": n_pairs[-1]}), flush=True)
+
+
 RERANK_TASKS = [
     "rerank_for_create_trainset",
     "assign_scores_for_pseudo_queries",
@@ -707,6 +825,52 @@ def main(argv=None):
     prtm.add_argument("--docid-to-smtid")
     prtm.add_argument("--qrel")
     prtm.set_defaults(fn=cmd_rerank_task_merge)
+
+    pf = sub.add_parser("full-recipe", help="3-phase RIPOR recipe end-to-end")
+    pf.add_argument("--workspace", required=True)
+    pf.add_argument("--docs", required=True)
+    pf.add_argument("--queries", required=True)
+    pf.add_argument("--qrel", required=True)
+    pf.add_argument("--config", default=None,
+                    help="JSON overrides for run_full_recipe kwargs")
+    pf.add_argument("--device", default="cuda", help=DEVICE_HELP)
+    pf.set_defaults(fn=cmd_full_recipe)
+
+    pp = sub.add_parser("pipeline", help="multi-stage pipeline w/ resume")
+    pp.add_argument("--config", required=True)
+    pp.add_argument("--from", dest="from_stage", default=None,
+                    help="force re-run from this stage")
+    pp.add_argument("--device", default="cuda",
+                    help=DEVICE_HELP + "; added to each stage that takes "
+                         "--device and names none")
+    pp.set_defaults(fn=cmd_pipeline)
+
+    pd = sub.add_parser("datagen", help="phase-3 flywheel data generation")
+    pd.add_argument("--workspace", required=True)
+    pd.add_argument("--queries", required=True)
+    pd.add_argument("--teacher-trainset", required=True,
+                    help="JSONL {'qid','docids','scores'} from the teacher")
+    pd.add_argument("--phase", default="final")
+    pd.add_argument("--prefix-lengths", type=int, nargs="+",
+                    default=[4, 8, 16, 32])
+    pd.add_argument("--beam", type=int, default=100)
+    pd.add_argument("--batch-size", type=int, default=4)
+    pd.add_argument("--decay", type=int, default=2)
+    pd.add_argument("--teacher", choices=["self", "bert"], default="self",
+                    help="pair scorer: the phase model's own rerank_score "
+                         "(self) or a BertCrossEncoder checkpoint (bert)")
+    pd.add_argument("--teacher-ckpt", default=None,
+                    help="BertCrossEncoder checkpoint dir (teacher=bert)")
+    pd.add_argument("--docs", default=None,
+                    help="doc collection dir (required for teacher=bert)")
+    pd.add_argument("--max-length", type=int, default=64)
+    pd.add_argument("--device", default="cuda", help=DEVICE_HELP)
+    pd.set_defaults(fn=cmd_datagen)
+
+    # the subcommands that take --device: ``pipeline`` hands its own to them
+    pp.set_defaults(device_commands={
+        name for name, sp in sub.choices.items()
+        if "--device" in sp._option_string_actions})
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -40,7 +40,8 @@ from ripor_tpu_torch.evaluation.retriever import encode_corpus
 from ripor_tpu_torch.models.config import RiporConfig
 from ripor_tpu_torch.models.ripor import install_codebooks
 from ripor_tpu_torch.quantize.rq import RQCodebooks, rq_encode, train_rq
-from ripor_tpu_torch.train.checkpoint import load_params, save_params
+from ripor_tpu_torch.train.checkpoint import (has_params, load_params,
+                                              save_params)
 from ripor_tpu_torch.train.trainer import TrainConfig, Trainer
 from ripor_tpu_torch.trie.build import DocIdTrie, build_trie
 from ripor_tpu_torch.trie.succinct import succinct_tables, tables_to_torch
@@ -188,7 +189,7 @@ def stage_train(ws: Workspace, phase_name: str, model, params,
     or baseline model (``cfg`` None for the BERT families, as the JAX
     package passes it)."""
     ckpt_dir = ws.path(f"checkpoints/{phase_name}")
-    if (ckpt_dir / "params.pt").exists() or (ckpt_dir / "params").exists():
+    if has_params(ckpt_dir):
         ws.log(f"{phase_name}: restoring existing checkpoint")
         return load_params(ckpt_dir, cfg, model=model)
     ws.log(f"{phase_name}: training")

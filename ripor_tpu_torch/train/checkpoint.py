@@ -94,6 +94,13 @@ class CheckpointManager:
             (self.directory / "config.json").read_text())
 
 
+def has_params(path: str | Path) -> bool:
+    """Whether ``path`` holds a checkpoint that load_params reads:
+    ``params.pt``, or the JAX package's Orbax ``params/``."""
+    path = Path(path)
+    return (path / PARAMS_FILE).exists() or (path / "params").exists()
+
+
 def save_params(path: str | Path, params: Mapping[str, torch.Tensor],
                 config: Optional[RiporConfig] = None) -> None:
     """Write ``path/params.pt`` (the state_dict, moved to the CPU) and, with

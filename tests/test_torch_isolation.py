@@ -57,7 +57,12 @@ def test_no_jax_flax_or_reference_modules_imported():
             "ripor_tpu_torch.models.dense_encoder",
             "ripor_tpu_torch.models.import_hf",
             "ripor_tpu_torch.evaluation.reranker",
-            "ripor_tpu_torch.evaluation.rerank_tasks"} <= set(mods)
+            "ripor_tpu_torch.evaluation.rerank_tasks",
+            "ripor_tpu_torch.pipeline.datagen",
+            "ripor_tpu_torch.pipeline.flywheel",
+            "ripor_tpu_torch.pipeline.runner",
+            "ripor_tpu_torch.pipeline.full_recipe",
+            "ripor_tpu_torch.train.calibrate"} <= set(mods)
     r = _run(f"""
         import importlib, sys
         for m in {mods!r}:
@@ -93,7 +98,7 @@ def test_import_does_not_call_nvcc():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
-def test_entry_points_default_to_cuda_and_raise_without_it():
+def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
     from ripor_tpu_torch.data.tokenizer import HashTokenizer
@@ -118,6 +123,19 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         load_bert_teacher("no_checkpoint_here", 100)
     with pytest.raises(RuntimeError, match="CUDA"):
         rerank_query_smtids(cfg, sd, HashTokenizer(100), None, {})
+    from ripor_tpu_torch.pipeline.flywheel import (beam_prefix_candidates,
+                                                   datagen_round)
+    from ripor_tpu_torch.pipeline.full_recipe import run_full_recipe
+    docids = [str(i) for i in range(20)]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        beam_prefix_candidates(cfg, sd, HashTokenizer(100), ["q"], ["a"],
+                               codes, docids, prefix_len=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        datagen_round(cfg, sd, HashTokenizer(100), {"q": "a"},
+                      {"q": docids[:3]}, codes, docids, dict, prefix_len=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_full_recipe(str(tmp_path / "ws"), "docs", "queries", "qrel")
+    assert not (tmp_path / "ws").exists()
 
 
 def test_cpu_run_launches_no_kernel():
