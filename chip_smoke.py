@@ -22,10 +22,16 @@ nonzero and no result line is printed:
      searches at their own shapes (pipeline_searches: B 4 and 8, beam 8,
      10 and 100, t5-base and the recipe's small model), at every step t
      with its cache of Mc slots: K1-K3 on the megarow path, K5, K3, K6 on
-     the non-deferred path of the prefix-4 searches. Time kernel, plain
-     version and one PyTorch call of the same function where there is
-     one (advanced indexing for the gathers, scaled_dot_product_attention
-     for K5 and K8): a yardstick the port never uses;
+     the non-deferred path of the prefix-4 searches; each of K1-K8 at
+     the per-rank width of 2-way tensor parallelism at t5-base (H=6,
+     F=384; tp_width_checks, K1-K3 at every segment); and the kernels of
+     phase 12's searches the same way as phase 11's (mesh_searches: DP
+     at B=4 and t5-base width, TP at H=6 / F=384 and B=8 in bf16 on
+     int4 rows and in f32 on exact rows, and the toy TP searches). Time
+     kernel, plain version and one PyTorch call of the same function
+     where there is one (advanced indexing for the gathers,
+     scaled_dot_product_attention for K5 and K8): a yardstick the port
+     never uses;
   3. agreement on a small input: the port's beam search through the
      kernels on the card against its plain path on the CPU (the path the
      CPU tests hold against the JAX package), on the megarow and deferred
@@ -123,7 +129,27 @@ nonzero and no result line is printed:
      re-run from a stage, and equal to the subcommands run directly. The
      counters are zeroed just before (a)'s in-process rounds and (b)'s
      run and read just after, and must equal the launches of the
-     searches that phase 2 checked (decode_launches).
+     searches that phase 2 checked (decode_launches);
+ 12. the mesh: two gloo ranks that share the card, each a process of its
+     own (``chip_smoke.py --mesh-rank R 2 DIR``) under a timeout, at
+     phase 4's model, corpus and queries (B=8, beam 1000, int4 cache):
+     (a) make_sharded_beam_search_fn at data=2 and (b)
+     make_tp_beam_search_fn at model=2 (K1-K3 at H=6), each once to warm
+     up and once timed with the counters zeroed just before and read
+     just after (each rank's launches must equal decode_launches'), (b)
+     once more in f32 on an exact cache, counted the same way, the
+     all-reduces of one TP step timed alone, and (b) at
+     tests/test_sharded_decode.py's geometry in f32 (exact and int4
+     megarow); (c) RetrievalEngine(mesh=) and dense_topk(mesh=) over
+     1,000,000 x 768 bf16 rows at data=2. Every rank's results must be
+     equal and agree with one process's runs at the int4 bar (top beam
+     equal, code sets differing by at most one, scores within rtol 0.05 /
+     atol 0.25): (a), the engine and f32 (b) with the plain search, bf16
+     (b) with a search whose output projections take the same two
+     partial sums (parallel/reference.py::split_sums; the plain search's
+     movement is reported), the toy TP searches at that test's bars;
+     dense_topk's sets apart from ties. Phase 2 holds every kernel launch
+     of these searches at its shape (mesh_searches).
 
 Prints the card's name and power limit (nvidia-smi), per-phase lines, then
 a ``{"kernels": [...]}`` line and, last, the contract line
@@ -256,70 +282,76 @@ def megarow_checks(results, g):
     """Phase 2, megarow kernels K1-K3 against their plain versions at the
     main path's shapes; appends (kernel, case, record) to results."""
     import torch
+    for Mc in SEGMENTS:
+        for quant in ("int4", "int8", None):
+            n_before = len(results)
+            megarow_case(results, f"{quant or 'bf16'} Mc={Mc}", quant, Mc, g,
+                         ends=Mc in (SEGMENTS[0], SEGMENTS[-1]))
+            torch.cuda.empty_cache()
+            print_checks(results[n_before:])
+
+
+def megarow_case(results, tag, quant, Mc, g, ends=True, width=(F, H)):
+    """K2 at t = Mc - 1 of a [B, N, L, Mc, RW] cache at ``width``, and
+    with ``ends`` K1 and K3 (bit-equal), against their plain versions."""
+    import torch
     from ripor_tpu_torch.ops import (beam_gather_rows,
                                      beam_gather_rows_plain,
                                      reorder_cache_all,
                                      reorder_cache_all_plain)
     bidx = torch.arange(B, device="cuda")[:, None]
-    for Mc in SEGMENTS:
-        for quant in ("int4", "int8", None):
-            tag = f"{quant or 'bf16'} Mc={Mc}"
-            cache = random_rows(quant, (B, N, L, Mc), g)
-            RW = cache.shape[-1]
-            src = torch.randint(0, N, (B, N), generator=g, device="cuda",
-                                dtype=torch.int32)
-            uniq = unique_sources(src)
-            slab = L * Mc * RW * cache.element_size()
-            t = Mc - 1
-            n_before = len(results)
-            ends = Mc in (SEGMENTS[0], SEGMENTS[-1])  # K1 and K3 only there
+    cache = random_rows(quant, (B, N, L, Mc), g, width)
+    RW = cache.shape[-1]
+    src = torch.randint(0, N, (B, N), generator=g, device="cuda",
+                        dtype=torch.int32)
+    uniq = unique_sources(src)
+    slab = L * Mc * RW * cache.element_size()
+    t = Mc - 1
+    if ends:
+        # K1
+        kvg = (torch.randint(-128, 128, (B, N, L * RW), generator=g,
+                             device="cuda", dtype=torch.int8)
+               if quant else
+               torch.randn(B, N, L * RW, generator=g, device="cuda",
+                           dtype=torch.bfloat16))
+        dst = torch.empty_like(cache)
+        ref = reorder_cache_all_plain(
+            kvg, cache, torch.empty_like(cache), src, t)
+        out = reorder_cache_all(kvg, cache, dst, src, t)
+        torch.cuda.synchronize()
+        check(torch.equal(out, ref), f"reorder_cache_all {tag}")
+        del ref
+        rec = dict(
+            ms=cuda_ms(lambda: reorder_cache_all(
+                kvg, cache, dst, src, t), 5),
+            plain_ms=cuda_ms(lambda: reorder_cache_all_plain(
+                kvg, cache, dst, src, t), 3),
+            library_ms=cuda_ms(lambda: cache[bidx, src.long()], 3),
+            max_abs_err=0.0)
+        rec["bound_ms"], rec["bound_by"] = bound(
+            uniq * slab + B * N * slab + nbytes(kvg, src))
+        results.append(("reorder_cache_all", tag, rec))
+        del dst, kvg
 
-            if ends:
-                # K1
-                kvg = (torch.randint(-128, 128, (B, N, L * RW), generator=g,
-                                     device="cuda", dtype=torch.int8)
-                       if quant else
-                       torch.randn(B, N, L * RW, generator=g, device="cuda",
-                                   dtype=torch.bfloat16))
-                dst = torch.empty_like(cache)
-                ref = reorder_cache_all_plain(
-                    kvg, cache, torch.empty_like(cache), src, t)
-                out = reorder_cache_all(kvg, cache, dst, src, t)
-                torch.cuda.synchronize()
-                check(torch.equal(out, ref), f"reorder_cache_all {tag}")
-                del ref
-                rec = dict(
-                    ms=cuda_ms(lambda: reorder_cache_all(
-                        kvg, cache, dst, src, t), 5),
-                    plain_ms=cuda_ms(lambda: reorder_cache_all_plain(
-                        kvg, cache, dst, src, t), 3),
-                    library_ms=cuda_ms(lambda: cache[bidx, src.long()], 3),
-                    max_abs_err=0.0)
-                rec["bound_ms"], rec["bound_by"] = bound(
-                    uniq * slab + B * N * slab + nbytes(kvg, src))
-                results.append(("reorder_cache_all", tag, rec))
-                del dst, kvg
-
-            step_attention_seq_case(results, tag, quant, cache, Mc, t, g)
-            if ends:
-                # K3 over this step's rows in the layout the main path gathers
-                # (QFUSE int8 rows, or exact bf16 K|V rows)
-                x = cache[:, :, :, 0].reshape(B, N, L * RW).contiguous()
-                ref = beam_gather_rows_plain(x, src)
-                check(torch.equal(beam_gather_rows(x, src), ref),
-                      f"beam_gather_rows {tag}")
-                rec = dict(ms=cuda_ms(lambda: beam_gather_rows(x, src), 20),
-                           plain_ms=cuda_ms(
-                               lambda: beam_gather_rows_plain(x, src), 5),
-                           library_ms=cuda_ms(lambda: x[bidx, src.long()], 5),
-                           max_abs_err=0.0)
-                row = L * RW * x.element_size()
-                rec["bound_ms"], rec["bound_by"] = bound(
-                    uniq * row + B * N * row + nbytes(src))
-                results.append(("beam_gather_rows", tag, rec))
-            del cache
-            torch.cuda.empty_cache()
-            print_checks(results[n_before:])
+    step_attention_seq_case(results, tag, quant, cache, Mc, t, g,
+                            width=width)
+    if ends:
+        # K3 over this step's rows in the layout the main path gathers
+        # (QFUSE int8 rows, or exact bf16 K|V rows)
+        x = cache[:, :, :, 0].reshape(B, N, L * RW).contiguous()
+        ref = beam_gather_rows_plain(x, src)
+        check(torch.equal(beam_gather_rows(x, src), ref),
+              f"beam_gather_rows {tag}")
+        rec = dict(ms=cuda_ms(lambda: beam_gather_rows(x, src), 20),
+                   plain_ms=cuda_ms(
+                       lambda: beam_gather_rows_plain(x, src), 5),
+                   library_ms=cuda_ms(lambda: x[bidx, src.long()], 5),
+                   max_abs_err=0.0)
+        row = L * RW * x.element_size()
+        rec["bound_ms"], rec["bound_by"] = bound(
+            uniq * row + B * N * row + nbytes(src))
+        results.append(("beam_gather_rows", tag, rec))
+    del cache
 
 
 def print_checks(recs):
@@ -553,8 +585,6 @@ def non_deferred_checks(results, g):
     planes with src tiled, bit-equal; Mc in {8, 32}) against their plain
     versions on a [L, 2, B, N, Mc, F] cache."""
     import torch
-    from ripor_tpu_torch.ops import (beam_gather_update,
-                                     beam_gather_update_plain)
     for Mc, dtype in ([(m, torch.bfloat16) for m in SEGMENTS]
                       + [(32, torch.float32)]):
         name = "bf16" if dtype == torch.bfloat16 else "f32"
@@ -574,36 +604,47 @@ def non_deferred_checks(results, g):
             torch.cuda.empty_cache()
             continue
 
-        G = L * 2 * B
-        flat = cache.view(G, N, Mc, F)
-        src = torch.randint(0, N, (B, N), generator=g, device="cuda",
-                            dtype=torch.int32)
-        src_rep = src.repeat(L * 2, 1)
-        kvg = torch.randn(G, N, F, generator=g, device="cuda",
-                          dtype=torch.bfloat16)
-        out, out_plain = torch.empty_like(flat), torch.empty_like(flat)
-        beam_gather_update(flat, kvg, src_rep, t, out)
-        beam_gather_update_plain(flat, kvg, src_rep, t, out_plain)
-        torch.cuda.synchronize()
-        check(torch.equal(out, out_plain), f"beam_gather_update {tag}")
-        del out_plain
-        gidx = torch.arange(G, device="cuda")[:, None]
-        lsrc = src_rep.long()
-        rec = dict(ms=cuda_ms(lambda: beam_gather_update(
-                       flat, kvg, src_rep, t, out), 10),
-                   plain_ms=cuda_ms(lambda: beam_gather_update_plain(
-                       flat, kvg, src_rep, t, out), 2),
-                   library_ms=cuda_ms(lambda: flat[gidx, lsrc], 2),
-                   max_abs_err=0.0)
-        slab = Mc * F * flat.element_size()
-        rec["bound_ms"], rec["bound_by"] = bound(
-            L * 2 * unique_sources(src) * slab + G * N * slab
-            + nbytes(kvg, src_rep))
-        results.append(("beam_gather_update", tag, rec))
-        print("kernel_check", json.dumps({"kernel": "beam_gather_update",
-                                          "case": tag, **rec}))
-        del cache, flat, out, kvg
+        gather_update_case(results, tag, cache, t, g)
+        del cache
         torch.cuda.empty_cache()
+
+
+def gather_update_case(results, tag, cache, t, g):
+    """K6, the non-deferred reorder over the L*2*B planes of a [L, 2, B,
+    N, Mc, Fw] cache with src tiled and slot t inserted, against its plain
+    version (bit-equal)."""
+    import torch
+    from ripor_tpu_torch.ops import (beam_gather_update,
+                                     beam_gather_update_plain)
+    Lw, _, Bq, Nq, Mc, Fw = cache.shape
+    G = Lw * 2 * Bq
+    flat = cache.view(G, Nq, Mc, Fw)
+    src = torch.randint(0, Nq, (Bq, Nq), generator=g, device="cuda",
+                        dtype=torch.int32)
+    src_rep = src.repeat(Lw * 2, 1)
+    kvg = torch.randn(G, Nq, Fw, generator=g, device="cuda",
+                      dtype=cache.dtype)
+    out, out_plain = torch.empty_like(flat), torch.empty_like(flat)
+    beam_gather_update(flat, kvg, src_rep, t, out)
+    beam_gather_update_plain(flat, kvg, src_rep, t, out_plain)
+    torch.cuda.synchronize()
+    check(torch.equal(out, out_plain), f"beam_gather_update {tag}")
+    del out_plain
+    gidx = torch.arange(G, device="cuda")[:, None]
+    lsrc = src_rep.long()
+    rec = dict(ms=cuda_ms(lambda: beam_gather_update(
+                   flat, kvg, src_rep, t, out), 10),
+               plain_ms=cuda_ms(lambda: beam_gather_update_plain(
+                   flat, kvg, src_rep, t, out), 2),
+               library_ms=cuda_ms(lambda: flat[gidx, lsrc], 2),
+               max_abs_err=0.0)
+    slab = Mc * Fw * flat.element_size()
+    rec["bound_ms"], rec["bound_by"] = bound(
+        Lw * 2 * unique_sources(src) * slab + G * Nq * slab
+        + nbytes(kvg, src_rep))
+    results.append(("beam_gather_update", tag, rec))
+    print("kernel_check", json.dumps({"kernel": "beam_gather_update",
+                                      "case": tag, **rec}))
 
 
 def step_attention_case(results, tag, q, ck, cv, bias, Hh, tol,
@@ -649,8 +690,6 @@ def write_attend_checks(results, g):
     Mc, F] view of the stacked cache (bf16, int8 and a narrow int8 block:
     bit-equal)."""
     import torch
-    from ripor_tpu_torch.ops import (beam_gather_blocks,
-                                     beam_gather_blocks_plain)
     for Mc in SEGMENTS:
         for dtype, name, tol in ((torch.bfloat16, "bf16", 2e-2),
                                  (torch.float32, "f32", 1e-4)):
@@ -665,41 +704,87 @@ def write_attend_checks(results, g):
             del kv, q
             torch.cuda.empty_cache()
 
-    G = L * 2 * B
     for dtype, Mc, C in ((torch.bfloat16, 8, F), (torch.bfloat16, 32, F),
                          (torch.int8, 32, F), (torch.int8, 3, 13)):
         tag = (f"{'bf16' if dtype == torch.bfloat16 else 'int8'} Mc={Mc}"
                + ("" if C == F else f" C={C}"))
-        cache = (torch.randn(G, N, Mc, C, generator=g, device="cuda",
-                             dtype=dtype) if dtype.is_floating_point else
-                 torch.randint(-128, 128, (G, N, Mc, C), generator=g,
-                               device="cuda", dtype=dtype))
-        src = torch.randint(0, N, (B, N), generator=g, device="cuda",
-                            dtype=torch.int32)
-        src_rep = src.repeat(L * 2, 1)
-        out = torch.empty_like(cache)
-        beam_gather_blocks(cache, src_rep, out)
-        ref = beam_gather_blocks_plain(cache, src_rep)
-        torch.cuda.synchronize()
-        check(torch.equal(out, ref), f"beam_gather_blocks {tag}")
-        del ref
-        gidx = torch.arange(G, device="cuda")[:, None]
-        lsrc = src_rep.long()
-        rec = dict(ms=cuda_ms(lambda: beam_gather_blocks(cache, src_rep,
-                                                         out), 10),
-                   plain_ms=cuda_ms(lambda: beam_gather_blocks_plain(
-                       cache, src_rep, out), 2),
-                   library_ms=cuda_ms(lambda: cache[gidx, lsrc], 2),
-                   max_abs_err=0.0)
-        slab = Mc * C * cache.element_size()
-        rec["bound_ms"], rec["bound_by"] = bound(
-            L * 2 * unique_sources(src) * slab + G * N * slab
-            + nbytes(src_rep))
-        results.append(("beam_gather_blocks", tag, rec))
-        print("kernel_check", json.dumps({
-            "kernel": "beam_gather_blocks", "case": tag, **rec}))
-        del cache, out
+        gather_blocks_case(results, tag, dtype, Mc, C, g)
         torch.cuda.empty_cache()
+
+
+def gather_blocks_case(results, tag, dtype, Mc, C, g):
+    """K7 over the [L*2*B, N, Mc, C] view of a stacked cache, against its
+    plain version (bit-equal)."""
+    import torch
+    from ripor_tpu_torch.ops import (beam_gather_blocks,
+                                     beam_gather_blocks_plain)
+    G = L * 2 * B
+    cache = (torch.randn(G, N, Mc, C, generator=g, device="cuda",
+                         dtype=dtype) if dtype.is_floating_point else
+             torch.randint(-128, 128, (G, N, Mc, C), generator=g,
+                           device="cuda", dtype=dtype))
+    src = torch.randint(0, N, (B, N), generator=g, device="cuda",
+                        dtype=torch.int32)
+    src_rep = src.repeat(L * 2, 1)
+    out = torch.empty_like(cache)
+    beam_gather_blocks(cache, src_rep, out)
+    ref = beam_gather_blocks_plain(cache, src_rep)
+    torch.cuda.synchronize()
+    check(torch.equal(out, ref), f"beam_gather_blocks {tag}")
+    del ref
+    gidx = torch.arange(G, device="cuda")[:, None]
+    lsrc = src_rep.long()
+    rec = dict(ms=cuda_ms(lambda: beam_gather_blocks(cache, src_rep,
+                                                     out), 10),
+               plain_ms=cuda_ms(lambda: beam_gather_blocks_plain(
+                   cache, src_rep, out), 2),
+               library_ms=cuda_ms(lambda: cache[gidx, lsrc], 2),
+               max_abs_err=0.0)
+    slab = Mc * C * cache.element_size()
+    rec["bound_ms"], rec["bound_by"] = bound(
+        L * 2 * unique_sources(src) * slab + G * N * slab
+        + nbytes(src_rep))
+    results.append(("beam_gather_blocks", tag, rec))
+    print("kernel_check", json.dumps({
+        "kernel": "beam_gather_blocks", "case": tag, **rec}))
+
+
+# the per-rank width of t5-base under 2-way tensor parallelism (phase 12)
+TP_WIDTH = (F // 2, H // 2)
+
+
+def tp_width_checks(results, g):
+    """Phase 2, each of K1-K8 at TP_WIDTH (F=384, H=6: the heads of one of
+    two model ranks at t5-base), B=8, N=1000, L=12, against its plain
+    version at phase 2's bars: K1-K3 on int4 rows (phase 12's cache) at
+    every segment's Mc (t = Mc - 1), and at Mc=32, t=31 K4 on int4 rows,
+    K5, K6 on the bf16 stacked cache, K7 and K8 on bf16 planes."""
+    import torch
+    Fw, Hw = TP_WIDTH
+    for Mc in SEGMENTS:
+        n_before = len(results)
+        megarow_case(results, f"int4 Mc={Mc} H={Hw} F={Fw}", "int4", Mc, g,
+                     width=TP_WIDTH)
+        print_checks(results[n_before:])
+    Mc, t = 32, 31
+    tag = f"int4 Mc={Mc} H={Hw} F={Fw}"
+    step_attend_reorder_case(results, tag, "int4", False, Mc, g,
+                             width=TP_WIDTH)
+    tag = f"bf16 Mc={Mc} H={Hw} F={Fw}"
+    cache = torch.randn(L, 2, B, N, Mc, Fw, generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+    q, kv_new, bias_hist, bias_new = attention_inputs(Mc, t, g, TP_WIDTH)
+    step_attention_fused_case(results, tag, cache, q,
+                              kv_new[..., :Fw].contiguous(),
+                              kv_new[..., Fw:].contiguous(), bias_hist,
+                              bias_new, Hw, 2e-2, 5)
+    gather_update_case(results, tag, cache, t, g)
+    bias_hist[t:] = torch.randn(Mc - t, Hw, generator=g, device="cuda")
+    step_attention_case(results, f"{tag} t={t}", q, cache[5, 0],
+                        cache[5, 1], bias_hist, Hw, 2e-2)
+    del cache, q, kv_new
+    gather_blocks_case(results, tag, torch.bfloat16, Mc, Fw, g)
+    torch.cuda.empty_cache()
 
 
 def decode_plan(P, cache_segments=4):
@@ -714,12 +799,12 @@ def decode_plan(P, cache_segments=4):
             [(t, hi) for lo, hi in spans for t in range(lo, hi)])
 
 
-def decode_launches(Lw, P, searches):
+def decode_launches(Lw, P, searches, cache_segments=4):
     """Launches of ``searches`` such searches over an Lw-layer decoder.
     Megarow: K1 once a step, K2 once a layer a step, K3 once a step but
     the last. Non-deferred: K5 once a layer a step, K3 and K6 once a step
     but the last."""
-    megarow, steps = decode_plan(P)
+    megarow, steps = decode_plan(P, cache_segments)
     n = len(steps)
     per = ({"reorder_cache_all": n, "step_attention_seq": n * Lw,
             "beam_gather_rows": n - 1} if megarow else
@@ -737,7 +822,8 @@ def sum_counts(parts):
 
 
 def pipeline_searches(sz):
-    """The bf16 exact-row searches of phase 11 as ((F, H, L), B, N, P):
+    """The bf16 exact-row searches of phase 11 (cache_segments=4) as
+    path_shape_checks takes them, ((F, H, L), B, N, P, 4, None, "bf16"):
     (a) and (d) datagen_round at batch 4 and beam sz["beam"]; (b)
     datagen_round at batch 4 and beam min(num_beams, 10) over the
     curriculum, and stage_retrieve at batch 8 and beam num_beams over the
@@ -759,17 +845,41 @@ def pipeline_searches(sz):
     out += [(big, 8, kw["num_beams"], p) for p in (M, *kw["prefix_eval"])]
     out += [(small, 4, min(fk["num_beams"], 10), p) for p in small_plens]
     out += [(small, 8, fk["num_beams"], fk["M"])]
-    return list(dict.fromkeys(out))
+    return [(*search, 4, None, "bf16") for search in dict.fromkeys(out)]
 
 
-def pipeline_shape_checks(results, g, sz):
-    """Phase 2, the kernels of phase 11's searches at their shapes
-    (pipeline_searches): at every step t of each search, on its cache of
-    Mc slots with step t's biases (history slots >= t masked) and one
-    layer a step in turn, each kernel the step launches against its plain
-    version on random bf16 rows. Megarow: K1 and K3 bit-equal, K2 within
-    2e-2; non-deferred: K5 within 2e-2, K3 and K6 bit-equal (phase 2's
-    bars). One record per search and kernel: its worst error and steps."""
+def mesh_searches(sz):
+    """The searches of phase 12's ranks, each rank's share, as
+    path_shape_checks takes them: DP and the engine (data=2: B/2 queries
+    at t5-base width) and TP (model=2: H/2 heads, F/2) in bf16 on sz's
+    cache, TP in f32 on an exact cache, and the TOY_TP searches (model=2
+    over ripor_small(M=4, K=8), f32, 5 beams, 8 queries)."""
+    from ripor_tpu_torch.models import ripor_base, ripor_small
+
+    def width(c, mp):
+        return (c.t5.inner_dim // mp, c.t5.num_heads // mp,
+                c.t5.num_decoder_layers)
+    big, toy = ripor_base(M=M, K=K), ripor_small(M=4, K=8)
+    q, Bq, Nq = sz["quant"], sz["batch"], sz["beam"]
+    out = [(width(big, 1), Bq // 2, Nq, big.M, 4, q, "bf16"),
+           (width(big, 2), Bq, Nq, big.M, 4, q, "bf16"),
+           (width(big, 2), Bq, Nq, big.M, 4, None, "f32")]
+    out += [(width(toy, 2), 8, 5, toy.M, kw["cache_segments"],
+             kw.get("kv_cache_quant"), "f32") for kw, *_ in TOY_TP.values()]
+    return out
+
+
+def path_shape_checks(results, g, phase, searches):
+    """Phase 2, the kernels of a later phase's searches at their shapes:
+    searches ((F, H, L), B, N, P, cache_segments, quant, dtype); at every
+    step t of each, on its cache of Mc slots with step t's biases
+    (history slots >= t masked) and one layer a step in turn, each kernel
+    the step launches against its plain version on random rows. Megarow:
+    K1 and K3 bit-equal, K2 within 1e-4 on exact f32 rows and 2e-2
+    otherwise (quantized rows take bf16 dots whatever q's dtype), its
+    quantized rows bit-equal; non-deferred (exact rows only): K5 within
+    the same, K3 and K6 bit-equal (phase 2's bars). One record per search
+    and kernel: its worst error and steps."""
     import torch
     from ripor_tpu_torch.models.t5 import Decoder
     from ripor_tpu_torch.ops import (beam_gather_rows, beam_gather_rows_plain,
@@ -781,20 +891,31 @@ def pipeline_shape_checks(results, g, sz):
                                      step_attention_fused_plain,
                                      step_attention_seq,
                                      step_attention_seq_plain)
-    bf16 = torch.bfloat16
 
-    def randn(*shape):
-        return torch.randn(*shape, generator=g, device="cuda", dtype=bf16)
-
-    def close(name, got, want, tg):
+    def close(name, got, want, tg, tol):
         err = (got.float() - want.float()).abs().max().item()
-        check(torch.allclose(got.float(), want.float(), rtol=2e-2,
-                             atol=2e-2), f"{name} {tg}: max abs err {err}")
+        check(torch.allclose(got.float(), want.float(), rtol=tol,
+                             atol=tol), f"{name} {tg}: max abs err {err}")
         return err
 
-    for (Fw, Hw, Lw), Bq, Nq, P in pipeline_searches(sz):
-        megarow, steps = decode_plan(P)
-        tag = f"phase 11 F={Fw} H={Hw} L={Lw} B={Bq} N={Nq} P={P}"
+    for (Fw, Hw, Lw), Bq, Nq, P, segs, quant, dname in searches:
+        megarow, steps = decode_plan(P, segs)
+        check(megarow or quant is None,
+              f"{phase}: a quantized search off the megarow path")
+        dt = {"bf16": torch.bfloat16, "f32": torch.float32}[dname]
+        # quantized rows take their dots in bf16 (the plain version's
+        # math), so only exact f32 rows hold f32's bar
+        tol = 1e-4 if dt == torch.float32 and quant is None else 2e-2
+
+        def randn(*shape):
+            return torch.randn(*shape, generator=g, device="cuda", dtype=dt)
+
+        def step_rows():        # a step's rows of every layer, valid
+            return random_rows(quant, (Bq, Nq, Lw), g, (Fw, Hw),
+                               dt).reshape(Bq, Nq, -1)
+
+        tag = (f"{phase} F={Fw} H={Hw} L={Lw} B={Bq} N={Nq} P={P} "
+               f"{quant or 'exact'} {dname}")
         errs = {}
         full_bias = torch.randn(Hw, P, P, generator=g, device="cuda")
         for t, Mc in steps:
@@ -805,21 +926,28 @@ def pipeline_shape_checks(results, g, sz):
                                 dtype=torch.int32)
             q = randn(Bq, Nq, Fw)
             if megarow:
-                RW = 2 * Fw
-                cache, kvg = randn(Bq, Nq, Lw, Mc, RW), randn(Bq, Nq, Lw * RW)
+                cache = random_rows(quant, (Bq, Nq, Lw, Mc), g, (Fw, Hw), dt)
+                kvg = step_rows()
                 out = reorder_cache_all(kvg, cache, torch.empty_like(cache),
                                         src, t)
                 ref = reorder_cache_all_plain(kvg, cache,
                                               torch.empty_like(cache), src, t)
                 check(torch.equal(out, ref), f"reorder_cache_all {tg}")
+                del cache, ref
                 errs.setdefault("reorder_cache_all", []).append(0.0)
-                args = (q, randn(Bq, Nq, RW), out, layer, bias_hist,
-                        bias_new, Hw, None)
+                args = (q, randn(Bq, Nq, 2 * Fw), out, layer, bias_hist,
+                        bias_new, Hw, quant)
+                got, want = (step_attention_seq(*args),
+                             step_attention_seq_plain(*args))
+                if quant:
+                    (got, got_q), (want, want_q) = got, want
+                    check(torch.equal(got_q, want_q),
+                          f"step_attention_seq emit_quant rows {tg}")
                 errs.setdefault("step_attention_seq", []).append(close(
-                    "step_attention_seq", step_attention_seq(*args),
-                    step_attention_seq_plain(*args), tg))
+                    "step_attention_seq", got, want, tg, tol))
+                del out
                 if not last:
-                    rows = randn(Bq, Nq, Lw * RW)
+                    rows = step_rows()
                     check(torch.equal(beam_gather_rows(rows, src),
                                       beam_gather_rows_plain(rows, src)),
                           f"beam_gather_rows {tg}")
@@ -830,7 +958,7 @@ def pipeline_shape_checks(results, g, sz):
                     bias_hist, bias_new, Hw)
             errs.setdefault("step_attention_fused", []).append(close(
                 "step_attention_fused", step_attention_fused(*args),
-                step_attention_fused_plain(*args), tg))
+                step_attention_fused_plain(*args), tg, tol))
             if last:
                 continue
             G = Lw * 2 * Bq
@@ -3495,6 +3623,346 @@ def pipeline_phase(world, phase11, tmp, sz=P11):
                                    **parts}))
 
 
+# ---- phase 12: the mesh — data- and tensor-parallel decode ----
+
+# The full-width run of phase 12. A rehearsal at a tiny size on the CPU
+# passes dict(P12, device="cpu", <small sizes>) with a small world.
+P12 = dict(device="cuda", beam=1000, batch=8, quant="int4",
+           dense_rows=1_000_000, dense_dim=768, dense_queries=64,
+           dense_k=1000, timeout=480)
+# The TP searches at tests/test_sharded_decode.py's geometry
+# (ripor_small(M=4, K=8), f32, 5 beams, 8 queries of 9 tokens, 60 docs),
+# with that test's bars: (search kwargs, rtol, atol, states compared)
+TOY_TP = {"exact": (dict(megarow=True, cache_segments=2), 2e-5, 1e-5, True),
+          "int4": (dict(megarow=True, cache_segments=2,
+                        kv_cache_quant="int4"), 1e-4, 1e-3, False)}
+
+
+def toy_world():
+    """Phase 12's small TP geometry (TOY_TP), from the seed: (cfg, f32
+    state_dict on the CPU, ids, mask, trie)."""
+    import torch
+    from ripor_tpu_torch.models import init_params, ripor_small
+    from ripor_tpu_torch.trie import build_trie
+    cfg = ripor_small(M=4, K=8)
+    sd = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    rng = np.random.default_rng(SEED)
+    ids = rng.integers(1, 90, (8, 9)).astype(np.int32)
+    return cfg, sd, ids, np.ones_like(ids), build_trie(
+        rng.integers(0, 8, (60, 4)), 8)
+
+
+def mesh_rank(rank, world_size, tmp):
+    """One rank of phase 12 (``chip_smoke.py --mesh-rank R W TMP``): joins
+    the gloo world on a FileStore in ``tmp``, loads the world the parent
+    saved there, and runs (a) the data-parallel search (data=2), (b) the
+    tensor-parallel search (model=2), each once to warm up and once with
+    the launch counters zeroed just before and read just after, and the
+    TP search in f32 on an exact cache once, counted the same way (its
+    time includes the build of the rank's model); the all-reduces of one
+    TP step alone; the TP searches at TOY_TP's geometry; then (c)
+    RetrievalEngine(mesh=) and dense_topk(mesh=) at data=2. Writes its
+    results to ``tmp/rank<R>.pkl``."""
+    import os
+    import pickle
+
+    import torch
+    from ripor_tpu_torch.core.mesh import (MODEL_AXIS, MeshSpec,
+                                           all_reduce_sum, create_mesh,
+                                           distributed_init)
+    from ripor_tpu_torch.data.tokenizer import tokenize_queries
+    from ripor_tpu_torch.decode.beam import (make_sharded_beam_search_fn,
+                                             make_tp_beam_search_fn)
+    from ripor_tpu_torch.evaluation.retriever import dense_topk
+    from ripor_tpu_torch.models import RiporModel
+    from ripor_tpu_torch.ops import KERNEL_LAUNCHES
+    from ripor_tpu_torch.serve import RetrievalEngine, ServeConfig
+    from ripor_tpu_torch.trie import succinct_tables, tables_to_torch
+
+    with open(os.path.join(tmp, "world.pkl"), "rb") as f:
+        w = pickle.load(f)
+    sz, dev = w["sz"], w["sz"]["device"]
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+        from ripor_tpu_torch.ops import _build
+        _build.build_all()
+    distributed_init(f"file://{os.path.join(tmp, 'store')}",
+                     num_processes=world_size, process_id=rank,
+                     backend="gloo")
+    cfg = w["cfg"]
+    sd = {k: v.to(dev) for k, v in w["sd"].items()}
+    model = RiporModel(cfg, dtype=torch.bfloat16, device=dev)
+    model.load_state_dict(sd)
+    tables = tables_to_torch(succinct_tables(w["trie"]), dev)
+    Bq = sz["batch"]
+    ids, mask = tokenize_queries(w["tok"], w["queries"][:Bq], 64)
+    out = {}
+    meshes = {"dp": create_mesh(MeshSpec(data=world_size), dev),
+              "tp": create_mesh(MeshSpec(data=1, model=world_size), dev)}
+    for part, make, dtype in (
+            ("dp", make_sharded_beam_search_fn, torch.bfloat16),
+            ("tp", make_tp_beam_search_fn, torch.bfloat16),
+            ("tp_f32", make_tp_beam_search_fn, torch.float32)):
+        fn = make(cfg, sz["beam"], meshes[part[:2]],
+                  kv_cache_quant=None if part == "tp_f32" else sz["quant"],
+                  dtype=dtype, device=dev)
+        params = model if part == "dp" else sd
+        if part != "tp_f32":
+            # a warm-up on two queries; for TP it builds the rank's
+            # model, which the timed call reuses
+            fn(params, ids[:2], mask[:2], tables)
+        sync(dev)
+        zero_launches()
+        t0 = time.monotonic()
+        res = tuple(a.cpu().numpy() for a in fn(params, ids, mask, tables))
+        dt = time.monotonic() - t0
+        out[part] = dict(res=res, s=dt, ms_per_step=dt / cfg.M * 1e3,
+                         launches={k: n for k, n in KERNEL_LAUNCHES.items()
+                                   if n})
+        del fn
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    # the all-reduces of one TP decode step alone (3 a decoder layer) on
+    # its [B, N, d] bf16 activations, over the model group
+    n_red = 3 * cfg.t5.num_decoder_layers
+    x = torch.zeros(Bq, sz["beam"], cfg.t5.d_model, dtype=torch.bfloat16,
+                    device=dev)
+    group = meshes["tp"].get_group(MODEL_AXIS)
+    all_reduce_sum(x, group)
+    sync(dev)
+    t0 = time.monotonic()
+    for _ in range(n_red):
+        all_reduce_sum(x, group)
+    sync(dev)
+    out["all_reduce_ms"] = (time.monotonic() - t0) / n_red * 1e3
+    out["all_reduces_per_step"] = n_red
+    tcfg, tsd, tids, tmask, ttrie = w["toy"]
+    ttables = tables_to_torch(succinct_tables(ttrie), dev)
+    tsd = {k: v.to(dev) for k, v in tsd.items()}
+    for name, (kw, *_) in TOY_TP.items():
+        fn = make_tp_beam_search_fn(tcfg, 5, meshes["tp"],
+                                    dtype=torch.float32, device=dev, **kw)
+        out[f"toy_{name}"] = tuple(a.cpu().numpy()
+                                   for a in fn(tsd, tids, tmask, ttables))
+    eng = RetrievalEngine(
+        cfg, sd, w["tok"], w["trie"], w["docids"],
+        ServeConfig(num_beams=sz["beam"], topk=sz["beam"], batch_sizes=(Bq,),
+                    kv_cache_quant=sz["quant"]),
+        mesh=meshes["dp"], device=dev)
+    out["engine"] = eng.retrieve_batch(w["queries"][:Bq])
+    del eng
+    q, corpus = dense_inputs(sz)
+    t0 = time.monotonic()
+    out["dense"] = dense_topk(q, corpus, sz["dense_k"], mesh=meshes["dp"])
+    out["dense_s"] = time.monotonic() - t0
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def dense_inputs(sz):
+    """Phase 12's dense queries (numpy) and bf16 corpus on the device, made
+    from the seed where they live."""
+    import torch
+    g = torch.Generator(device=sz["device"]).manual_seed(SEED)
+    corpus = torch.randn(sz["dense_rows"], sz["dense_dim"], generator=g,
+                         device=sz["device"]).to(torch.bfloat16)
+    q = torch.randn(sz["dense_queries"], sz["dense_dim"], generator=g,
+                    device=sz["device"])
+    return q.cpu().numpy(), corpus
+
+
+def live_equal(a, b, live):
+    return bool(np.array_equal(a[live], b[live]))
+
+
+def mesh_phase(world, phase12, tmp, sz=P12):
+    """Phase 12: the mesh on one card. Two gloo ranks share the card (NCCL
+    refuses two ranks on one device), each a process of its own
+    (mesh_rank), under a timeout: a rank that fails or hangs fails the
+    phase. Every rank's results must be equal (for TP: the two model
+    ranks' picks) and each rank's timed search must launch what
+    decode_launches counts. Against this process's runs on the same
+    inputs: (a) DP at the int4 bar (top beam equal, each query's code sets
+    differing by at most one, live scores within rtol 0.05 / atol 0.25);
+    (b) TP in f32 on an exact cache at the int4 bar against the plain
+    one-process f32 search on the same cache; TP in bf16 at the int4 bar against a one-process search that
+    takes the same partial sums (parallel/reference.py::split_sums), its
+    live beams on their trie groups, and its movement from the plain
+    one-process search reported: at random bf16 weights the order of the
+    sums alone moves the search past that bar; TP at TOY_TP's geometry at
+    tests/test_sharded_decode.py's bars; (c) the engine's docids at the
+    int4 bar, dense_topk's top-k sets equal apart from ties. Adds the
+    ranks' launches to ``phase12``. The wall times of two ranks sharing
+    one card say nothing of a run on two cards."""
+    import os
+    import pickle
+
+    import torch
+    from ripor_tpu_torch.data.tokenizer import tokenize_queries
+    from ripor_tpu_torch.decode.beam import make_beam_search_fn
+    from ripor_tpu_torch.evaluation.retriever import dense_topk
+    from ripor_tpu_torch.models import RiporModel
+    from ripor_tpu_torch.parallel import split_sums
+    from ripor_tpu_torch.serve import RetrievalEngine, ServeConfig
+    from ripor_tpu_torch.trie import succinct_tables, tables_to_torch
+
+    t_phase = time.monotonic()
+    dev, Bq, cfg = sz["device"], sz["batch"], world["cfg"]
+    ids, mask = tokenize_queries(world["tok"], world["queries"][:Bq], 64)
+    # the plain one-process f32 search on an exact cache (~38 GB at its
+    # peak), before the ranks take the card's memory
+    model32 = RiporModel(cfg, dtype=torch.float32, device=dev)
+    model32.load_state_dict(world["sd"])
+    ref32 = tuple(a.cpu().numpy() for a in make_beam_search_fn(
+        cfg, sz["beam"], dtype=torch.float32, device=dev)(
+            model32, ids, mask,
+            tables_to_torch(succinct_tables(world["trie"]), dev)))
+    del model32
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    toy = toy_world()
+    root = os.path.join(tmp, "mesh12")
+    os.makedirs(root)
+    with open(os.path.join(root, "world.pkl"), "wb") as f:
+        pickle.dump({"sz": sz, "cfg": cfg, "trie": world["trie"],
+                     "sd": {k: v.cpu() for k, v in world["sd"].items()},
+                     "tok": world["tok"], "docids": world["docids"],
+                     "queries": world["queries"], "toy": toy}, f)
+    logs = [open(os.path.join(root, f"rank{r}.log"), "wb") for r in (0, 1)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+         "2", root], stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in (0, 1)]
+    try:
+        # the one-process references, while the ranks start
+        eng = RetrievalEngine(
+            cfg, world["sd"], world["tok"], world["trie"], world["docids"],
+            ServeConfig(num_beams=sz["beam"], topk=sz["beam"],
+                        batch_sizes=(Bq,), kv_cache_quant=sz["quant"]),
+            device=dev)
+
+        def search():
+            return tuple(a.cpu().numpy() for a in eng._fn(
+                eng._model, ids, mask, eng._tables))
+        sync(dev)
+        t0 = time.monotonic()
+        ref = search()
+        single_s = time.monotonic() - t0
+        with split_sums(eng._model):
+            floor = search()
+        ref_engine = eng.retrieve_batch(world["queries"][:Bq])
+        del eng
+        tcfg, tsd, tids, tmask, ttrie = toy
+        tmodel = RiporModel(tcfg, dtype=torch.float32, device=dev)
+        tmodel.load_state_dict(tsd)
+        ttables = tables_to_torch(succinct_tables(ttrie), dev)
+        toy_ref = {name: tuple(a.cpu().numpy() for a in make_beam_search_fn(
+            tcfg, 5, dtype=torch.float32, device=dev, **kw)(
+                tmodel, tids, tmask, ttables))
+            for name, (kw, *_) in TOY_TP.items()}
+        q, corpus = dense_inputs(sz)
+        ref_dense = dense_topk(q, corpus, sz["dense_k"])
+        del corpus
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        deadline = time.monotonic() + sz["timeout"]
+        for p in procs:
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(root, f"rank{r}.log")) as f:
+                print(f.read()[-4000:], file=sys.stderr)
+            check(False, f"12: rank {r} exited {p.returncode}")
+    outs = []
+    for r in (0, 1):
+        with open(os.path.join(root, f"rank{r}.pkl"), "rb") as f:
+            outs.append(pickle.load(f))
+
+    searches = ("dp", "tp", "tp_f32")
+    parts = [*searches] + [f"toy_{n}" for n in TOY_TP]
+    for r, o in enumerate(outs):
+        for part in parts:
+            res = o[part]["res"] if part in searches else o[part]
+            want = (outs[0][part]["res"] if part in searches
+                    else outs[0][part])
+            check(all(np.array_equal(a, b) for a, b in zip(res, want)),
+                  f"12 {part}: rank {r}'s results differ from rank 0's")
+    want = decode_launches(cfg.t5.num_decoder_layers, cfg.M, 1)
+    rec = {"single_s": single_s, "single_ms_per_step": single_s / cfg.M * 1e3,
+           "split_sums_floor": beam_agreement(ref, floor)}
+    for part in searches:
+        for r, o in enumerate(outs):
+            check(o[part]["launches"] == want,
+                  f"12 {part} rank {r}: launches {o[part]['launches']}, "
+                  f"not {want}")
+            for k, n in o[part]["launches"].items():
+                phase12[k] = phase12.get(k, 0) + n
+        res = outs[0][part]["res"]
+        if dev == "cuda":
+            check_beams(f"12 {part}", world["trie"], *res)
+        agree = beam_agreement(ref32 if part == "tp_f32" else ref, res)
+        rec[part] = {"s": [o[part]["s"] for o in outs],
+                     "ms_per_step": [o[part]["ms_per_step"] for o in outs],
+                     "launches_per_rank": outs[0][part]["launches"],
+                     "against_one_process": agree}
+    rec["all_reduce_ms"] = [o["all_reduce_ms"] for o in outs]
+    rec["all_reduces_per_step"] = outs[0]["all_reduces_per_step"]
+    rec["tp"]["against_split_sums"] = beam_agreement(floor,
+                                                     outs[0]["tp"]["res"])
+    for tag, agree in (("dp", rec["dp"]["against_one_process"]),
+                       ("tp", rec["tp"]["against_split_sums"]),
+                       ("tp_f32", rec["tp_f32"]["against_one_process"])):
+        check(all(agree["top_beam_equal"])
+              and max(agree["code_set_diff"]) <= 1
+              and agree["max_diff_over_bar"] <= 1.0,
+              f"12 {tag}: outside the int4 bar {agree}")
+    for name, (_, rtol, atol, states) in TOY_TP.items():
+        (s1, c1, st1), (s0, c0, st0) = outs[0][f"toy_{name}"], toy_ref[name]
+        live = s0 > -1e29
+        err = float(np.abs(s1[live] - s0[live]).max())
+        check(np.array_equal(live, s1 > -1e29)
+              and np.allclose(s1[live], s0[live], rtol=rtol, atol=atol)
+              and live_equal(c1, c0, live)
+              and (not states or live_equal(st1, st0, live)),
+              f"12 toy TP {name}: max abs score diff {err}")
+        rec[f"toy_tp_{name}_max_abs_err"] = err
+    for r, o in enumerate(outs):
+        check(o["engine"] == outs[0]["engine"],
+              f"12 engine: rank {r}'s results differ from rank 0's")
+        check(all(np.array_equal(a, b) for a, b in zip(
+            o["dense"], outs[0]["dense"])),
+            f"12 dense: rank {r}'s top-k differs from rank 0's")
+    got = outs[0]["engine"]
+    check(len(got) == len(ref_engine), "12 engine: result count")
+    diff = []
+    for g_, w_ in zip(got, ref_engine):
+        check(g_[0][0] == w_[0][0], "12 engine: top docid")
+        docs_g, docs_w = {d for d, _ in g_}, {d for d, _ in w_}
+        diff.append(min(len(docs_g), len(docs_w)) - len(docs_g & docs_w))
+        sg, sw = np.array([v for _, v in g_]), np.array([v for _, v in w_])
+        n = min(len(sg), len(sw))
+        check(np.all(np.abs(sg[:n] - sw[:n]) <= 0.25 + 0.05 * np.abs(sw[:n])),
+              "12 engine: scores")
+    check(max(diff) <= 1, f"12 engine: docid sets {diff}")
+    ok, worst = topk_sets_agree(*outs[0]["dense"], *ref_dense)
+    check(ok, f"12 dense: top-k sets (worst rel score diff {worst})")
+    rec.update(engine_docid_set_diff=diff, dense_worst_rel_diff=worst,
+               dense_s=[o["dense_s"] for o in outs],
+               seconds=time.monotonic() - t_phase)
+    print("mesh", json.dumps(rec))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3528,7 +3996,9 @@ def main():
     non_deferred_checks(results, g)
     write_attend_checks(results, g)
     oversized_checks(results, g)
-    pipeline_shape_checks(results, g, P11)
+    tp_width_checks(results, g)
+    path_shape_checks(results, g, "phase 11", pipeline_searches(P11))
+    path_shape_checks(results, g, "phase 12", mesh_searches(P12))
     small_agreement()
     world = make_world()
     launches = {}
@@ -3544,6 +4014,8 @@ def main():
         teacher_phase(world, tmp)
         phase11 = {}
         pipeline_phase(world, phase11, tmp)
+        phase12 = {}
+        mesh_phase(world, phase12, tmp)
 
     # kernel: (TPU kernel it replaces, case of the reported times, path
     # whose run gives the launches)
@@ -3579,7 +4051,8 @@ def main():
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "case": case,
             "launches_rq_trie": phase9.get(name, 0),
-            "launches_pipeline": phase11.get(name, 0)})
+            "launches_pipeline": phase11.get(name, 0),
+            "launches_mesh": phase12.get(name, 0)})
     print("total_s", time.monotonic() - t_all)
     print(smi.splitlines()[0])
     print(json.dumps({"kernels": kernels}))
@@ -3590,4 +4063,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
     sys.exit(main())

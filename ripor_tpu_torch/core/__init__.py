@@ -1,3 +1,5 @@
+from ripor_tpu_torch.core.mesh import MeshSpec, create_mesh, local_mesh
 from ripor_tpu_torch.core.precision import DEFAULT_POLICY, FP32_POLICY, Policy
 
-__all__ = ["Policy", "DEFAULT_POLICY", "FP32_POLICY"]
+__all__ = ["MeshSpec", "create_mesh", "local_mesh", "Policy",
+           "DEFAULT_POLICY", "FP32_POLICY"]

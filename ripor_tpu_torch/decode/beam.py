@@ -28,6 +28,11 @@ runs ahead and the device never waits for it.
 
 Score semantics match the reference: raw cumulative logits, no EOS, every
 sequence runs all M steps, optional log-softmax in the model.
+
+Over a ('data', 'model') mesh (core/mesh.py), make_sharded_beam_search_fn
+splits the queries over 'data' and make_tp_beam_search_fn also splits
+heads and d_ff over 'model'; both run one of the paths above on every
+rank.
 """
 from __future__ import annotations
 
@@ -37,6 +42,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ripor_tpu_torch.core.mesh import (DATA_AXIS, MODEL_AXIS, all_gather_cat,
+                                       axis_size)
 from ripor_tpu_torch.models.config import RiporConfig
 from ripor_tpu_torch.ops.attend_reorder import quantize_rows_plain
 from ripor_tpu_torch.ops.beam_gather import (beam_gather_blocks,
@@ -389,6 +396,125 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
                 spare = torch.zeros_like(cache)
             lo = hi
         return beam_scores, codes, state
+
+    return run
+
+
+def _data_parallel(inner, mesh):
+    """``inner`` run SPMD over the mesh's 'data' axis: each rank searches
+    its slice of the query batch, and the slices' scores, codes and states
+    are gathered over the data group, so every rank returns the whole
+    batch's."""
+    ndata = axis_size(mesh, DATA_AXIS)
+    i = mesh.get_local_rank(DATA_AXIS)
+    group = mesh.get_group(DATA_AXIS)
+
+    @torch.inference_mode()
+    def run(model, input_ids, attention_mask, tables):
+        B = input_ids.shape[0]
+        if B % ndata != 0:
+            raise ValueError(
+                f"query batch {B} must divide the 'data' "
+                f"axis ({ndata}); pad ragged batches with "
+                f"pad_batch_to_data_axis() and drop the padded results")
+        n = B // ndata
+        out = inner(model, input_ids[i * n:(i + 1) * n],
+                    attention_mask[i * n:(i + 1) * n], tables)
+        return tuple(all_gather_cat(x, group) for x in out)
+
+    return run
+
+
+def make_sharded_beam_search_fn(cfg: RiporConfig, num_beams: int, mesh,
+                                **kw):
+    """Data-parallel constrained beam search: queries split over the
+    mesh's 'data' axis, the model and trie tables are whole on every rank,
+    and each rank runs the full decode on its queries (replaces the
+    reference's one-query-per-GPU DDP inference, evaluate.py:457-487).
+
+    SPMD: every rank calls the returned fn(model, input_ids,
+    attention_mask, tables) with the same global batch, which must divide
+    the data axis, and gets the global (scores, codes, states) back.
+    Keyword arguments as make_beam_search_fn's."""
+    return _data_parallel(make_beam_search_fn(cfg, num_beams, **kw), mesh)
+
+
+def pad_batch_to_data_axis(input_ids, attention_mask, mesh):
+    """Pad a ragged query batch up to a multiple of the mesh 'data' axis by
+    repeating the final query row (repeats keep every rank's compute
+    well-formed — a zero-mask dummy would attend over nothing). Returns
+    ``(input_ids, attention_mask, n_valid)``; callers slice every output's
+    leading axis to ``n_valid`` (the reference pads the same way via its
+    DistributedSampler's wrap-around, evaluate.py:468). Numpy arrays or
+    tensors."""
+    n = input_ids.shape[0]
+    pad = (-n) % axis_size(mesh, DATA_AXIS)
+    if pad:
+        cat = torch.cat if isinstance(input_ids, torch.Tensor) \
+            else np.concatenate
+        input_ids = cat([input_ids] + [input_ids[-1:]] * pad)
+        attention_mask = cat([attention_mask] + [attention_mask[-1:]] * pad)
+    return input_ids, attention_mask, n
+
+
+def make_tp_beam_search_fn(cfg: RiporConfig, num_beams: int, mesh,
+                           dtype=torch.bfloat16, device=None, **kw):
+    """Tensor-parallel (optionally x data-parallel) constrained beam search.
+
+    Attention heads, d_ff and the KV cache split over the mesh's 'model'
+    axis megatron-style (each rank's cache keeps the merged-head row
+    layout with H/mp heads, so the row width RW halves for each 2-way
+    split; the int8/int4 quantization groups are per head, so a shard is
+    self-contained); queries split over 'data'. The attention and FFN
+    output projections all-reduce over the model group in every layer
+    (models/layers.py). Beam selection and the trie mask run replicated
+    within a model group: the all-reduced activations are the same on
+    each of its ranks, so the picks are too.
+
+    SPMD: every rank calls the returned fn(params, input_ids,
+    attention_mask, tables) with the same global inputs; ``params`` is the
+    UNSHARDED model (a RiporModel or its state_dict), from which the rank's
+    per-rank model is built by parallel/sharding.py::shard_decode_params.
+    That model is kept for the next call while ``params`` holds the same
+    tensors, unchanged in place (their version counters); other params
+    build it anew. num_heads and d_ff must divide the 'model' axis size.
+    Other keyword arguments as make_beam_search_fn's.
+    """
+    from ripor_tpu_torch.models.ripor import RiporModel
+    from ripor_tpu_torch.parallel.sharding import shard_decode_params
+
+    dev = resolve_device(device)
+    mp = axis_size(mesh, MODEL_AXIS)
+    t5 = cfg.t5
+    if t5.num_heads % mp or t5.d_ff % mp:
+        raise ValueError(f"num_heads={t5.num_heads} and d_ff={t5.d_ff} must "
+                         f"divide the model axis ({mp})")
+    cfg_local = dataclasses.replace(
+        cfg, t5=dataclasses.replace(t5, num_heads=t5.num_heads // mp,
+                                    d_ff=t5.d_ff // mp, tp_axis=MODEL_AXIS))
+    search = _data_parallel(make_beam_search_fn(
+        cfg_local, num_beams, dtype=dtype, device=dev, **kw), mesh)
+    group = mesh.get_group(MODEL_AXIS)
+    built = {}                # "key": the params' tensors and versions
+
+    def local_model(params):
+        sd = (params.state_dict(keep_vars=True)
+              if isinstance(params, torch.nn.Module) else params)
+        # inference tensors keep no version counter: never reused
+        key = (None if any(t.is_inference() for t in sd.values())
+               else [(t, t._version) for t in sd.values()])
+        old = built.get("key")
+        if key is None or old is None or len(old) != len(key) or any(
+                a is not b or u != v for (a, u), (b, v) in zip(old, key)):
+            built.clear()
+            local = RiporModel(cfg_local, dtype=dtype, device=dev)
+            local.load_state_dict(shard_decode_params(
+                {k: t.detach() for k, t in sd.items()}, mesh))
+            built.update(key=key, model=local.set_tp_group(group))
+        return built["model"]
+
+    def run(params, input_ids, attention_mask, tables):
+        return search(local_model(params), input_ids, attention_mask, tables)
 
     return run
 

@@ -26,6 +26,7 @@ from typing import Dict, Iterable, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ripor_tpu_torch.core.mesh import DATA_AXIS, all_gather_cat, axis_size
 from ripor_tpu_torch.decode.beam import resolve_device
 from ripor_tpu_torch.quantize.kmeans import exact_f32
 
@@ -157,11 +158,16 @@ def dense_topk(queries, docs, k: int, mesh=None,
     stable argsort), a corpus tensor from :func:`device_corpus` (scanned
     on its device), or an :class:`Int8Corpus`. Queries are cast to the
     corpus's dtype (bf16 for an Int8Corpus, f32 for numpy). ``approx`` is
-    accepted and exact (module docstring). ``mesh`` is not ported."""
-    if mesh is not None:
-        return _dense_topk_mesh(queries, docs, k, mesh)
+    accepted and exact (module docstring). ``mesh``: the corpus rows split
+    over the mesh's 'data' axis when they divide it (SPMD: every rank
+    passes the same queries and corpus and gets the same top-k); an
+    Int8Corpus is refused there."""
     scale = None
     if isinstance(docs, Int8Corpus):
+        if mesh is not None:
+            raise NotImplementedError(
+                "Int8Corpus is the single-card capacity path; use a bf16 "
+                "device_corpus with the mesh (it already shards)")
         docs, scale = docs.codes, docs.scale
     n = docs.shape[0]
     k = min(k, n)
@@ -171,6 +177,8 @@ def dense_topk(queries, docs, k: int, mesh=None,
               else docs.dtype if on_device else torch.float32)
     queries = torch.as_tensor(np.asarray(queries)).to(device=dev,
                                                       dtype=qdtype)
+    if mesh is not None and n % axis_size(mesh, DATA_AXIS) == 0:
+        return _dense_topk_mesh(queries, docs, k, mesh, block_docs)
 
     with torch.inference_mode():
         if on_device:
@@ -195,11 +203,28 @@ def dense_topk(queries, docs, k: int, mesh=None,
         return best_s, best_i
 
 
-def _dense_topk_mesh(queries, docs, k, mesh):
-    raise NotImplementedError(
-        "dense_topk over a mesh (the corpus sharded across devices) is not "
-        "ported to ripor_tpu_torch yet: it goes with data/tensor-parallel "
-        "decode (ROADMAP.md Queue 1 item 5)")
+def _dense_topk_mesh(queries, docs, k, mesh, block_docs):
+    """The corpus rows split over 'data': each rank scans its n/ndata rows
+    (on the queries' device) for a local top-k with global row ids, then
+    only the [Q, k] candidates are gathered over the data group, never
+    [Q, N], and merged by one more top-k."""
+    nshards = axis_size(mesh, DATA_AXIS)
+    size = docs.shape[0] // nshards
+    lo = mesh.get_local_rank(DATA_AXIS) * size
+    local = docs[lo:lo + size]
+    if not isinstance(local, torch.Tensor):
+        local = torch.as_tensor(np.array(local, np.float32),
+                                device=queries.device)
+    group = mesh.get_group(DATA_AXIS)
+    with torch.inference_mode():
+        block, nblocks = _scan_blocks(size, block_docs)
+        ls, li = _topk_scan_device(queries, local, min(k, size), block,
+                                   nblocks)
+        ls = all_gather_cat(ls, group, dim=1)
+        li = all_gather_cat(li + lo, group, dim=1)
+        gs, gsel = torch.topk(ls, k, dim=1)
+        gi = torch.gather(li, 1, gsel)
+    return gs.cpu().numpy(), gi.cpu().numpy()
 
 
 def encode_corpus(model, batches: Iterable[Dict], dtype=None) -> np.ndarray:

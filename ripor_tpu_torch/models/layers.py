@@ -10,7 +10,11 @@ RMSNorm scale, which stays float32 as the reference keeps it (its product
 is taken in float32 either way). Attention logits and softmax run in
 float32, as the reference's ``preferred_element_type=float32`` einsums do.
 Parameter names mirror the flax tree (models/convert.py maps one onto the
-other). Dropout draws its masks from an explicit ``torch.Generator`` on the
+other). Under tensor parallelism (decode/beam.py::make_tp_beam_search_fn)
+a module holds one rank's heads or d_ff columns and its ``tp_group``
+attribute, set by the builder (RiporModel.set_tp_group), names the
+process group its row-parallel output projection all-reduces over.
+Dropout draws its masks from an explicit ``torch.Generator`` on the
 activations' device (``dropout``); the stacks in models/t5.py hand each
 layer a generator seeded for it.
 """
@@ -23,6 +27,7 @@ import torch
 import torch.nn.functional as Fn
 from torch import nn
 
+from ripor_tpu_torch.core.mesh import all_reduce_sum
 from ripor_tpu_torch.models.config import T5Config
 
 NEG_INF = -1e9  # additive mask value (reference layers.py NEG_INF)
@@ -144,6 +149,8 @@ def _linear(fan_in, fan_out, dtype, device):
 class Attention(nn.Module):
     """T5 multi-head attention with separately callable projections."""
 
+    tp_group = None
+
     def __init__(self, cfg: T5Config, dtype=torch.float32, device=None):
         super().__init__()
         self.cfg = cfg
@@ -171,8 +178,11 @@ class Attention(nn.Module):
         return self.out_flat(attn.reshape(b, l, self.cfg.inner_dim))
 
     def out_flat(self, attn_flat):
-        """Output projection on pre-flattened [B, L, inner] attention."""
-        return self.o(attn_flat)
+        """Output projection on pre-flattened [B, L, inner] attention.
+        Under tensor parallelism each rank holds a head shard and a row
+        shard of o, and the partial products all-reduce here, in the
+        activations' dtype, as the JAX package's psum takes them."""
+        return all_reduce_sum(self.o(attn_flat), self.tp_group)
 
     def forward(self, x, kv_input=None, bias=None):
         kv_input = x if kv_input is None else kv_input
@@ -184,6 +194,8 @@ class Attention(nn.Module):
 
 class FeedForward(nn.Module):
     """T5 FFN: wi -> relu -> wo (v1.0) or the gated variant (v1.1)."""
+
+    tp_group = None
 
     def __init__(self, cfg: T5Config, dtype=torch.float32, device=None):
         super().__init__()
@@ -207,7 +219,8 @@ class FeedForward(nn.Module):
             h = act(self.wi_0(x)) * self.wi_1(x)
         else:
             h = torch.relu(self.wi(x))
-        return self.wo(dropout(h, cfg.dropout_rate, deterministic, generator))
+        y = self.wo(dropout(h, cfg.dropout_rate, deterministic, generator))
+        return all_reduce_sum(y, self.tp_group)       # row-parallel wo
 
 
 def padding_bias(mask: torch.Tensor) -> torch.Tensor:

@@ -45,6 +45,21 @@ class RiporModel(nn.Module):
         self.start_embed = nn.Parameter(torch.empty(t5.d_model, **kw))
         self.requires_grad_(False)
 
+    def set_tp_group(self, group):
+        """Make this model one rank of a tensor-parallel group: every
+        attention and FFN output projection all-reduces over ``group``.
+        Only for a per-rank model, whose config has ``tp_axis`` set and
+        num_heads and d_ff already divided by the group's size
+        (decode/beam.py::make_tp_beam_search_fn builds one)."""
+        from ripor_tpu_torch.models.layers import Attention, FeedForward
+        if self.cfg.t5.tp_axis is None:
+            raise ValueError("set_tp_group needs a per-rank config "
+                             "(T5Config.tp_axis set)")
+        for m in self.modules():
+            if isinstance(m, (Attention, FeedForward)):
+                m.tp_group = group
+        return self
+
     def _out_books(self):
         return (self.codebooks if self.cfg.shared_output_input_embeds
                 else self.output_codebooks)

@@ -189,7 +189,8 @@ class DecoderLayer(nn.Module):
         attn = _step_cross_attention(cq, enc_k, enc_v, enc_bias, self.dtype)
         x = x + self.cross_attn.out(attn)
         if ffn_q is not None:
-            return x + ffn_int8_apply(self.ffn_norm(x), *ffn_q)
+            return x + ffn_int8_apply(self.ffn_norm(x), *ffn_q,
+                                      tp_group=self.ffn.tp_group)
         return x + self.ffn(self.ffn_norm(x))
 
 

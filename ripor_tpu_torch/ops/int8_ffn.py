@@ -10,8 +10,8 @@ the 0..127 half-range.
 The int8 products are ``torch._int_mm`` (int8 x int8 -> int32, exact on
 the CPU and on the card, where it runs on the int8 tensor cores). Only
 the non-gated T5 v1.0 FFN (wi/wo) is supported; gated variants keep the
-bf16 path. The JAX package's ``tp_axis`` (row-parallel wo partials summed
-across a mesh) waits for the tensor-parallel slice.
+bf16 path. Under tensor parallelism ``ffn_int8_apply(tp_group=)`` sums
+the row-parallel wo partials over the model axis's process group.
 """
 from __future__ import annotations
 
@@ -19,6 +19,8 @@ from typing import Mapping, Tuple
 
 import torch
 import torch.nn.functional as Fn
+
+from ripor_tpu_torch.core.mesh import all_reduce_sum
 
 FfnQ = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -68,12 +70,19 @@ def _quantize_rows(x: torch.Tensor, scale_max: torch.Tensor) -> torch.Tensor:
     return torch.round(x * (127.0 / scale_max)).to(torch.int8)
 
 
-def ffn_int8_apply(h, wi_q, wi_s, wo_q, wo_s, out_dtype=None):
+def ffn_int8_apply(h, wi_q, wi_s, wo_q, wo_s, out_dtype=None,
+                   tp_group=None):
     """relu FFN with int8 weights + per-row dynamic int8 activations.
 
     h: [..., d] the ffn_norm output for ONE layer; wi_q [d, f] / wo_q [f, d]
     int8 with f32 scales [1, f] / [1, d]. Returns [..., d] in ``out_dtype``
-    (default: h's dtype)."""
+    (default: h's dtype).
+
+    ``tp_group``: megatron row-parallel composition — wi column-sharded /
+    wo row-sharded over the group's ranks, h replicated; the wo partial
+    products all-reduce in f32 BEFORE the output cast. Per-shard scales
+    (wo_s from the local f/mp rows, the hidden activation scale from the
+    local columns) make each shard a self-contained int8 scheme."""
     out_dtype = out_dtype or h.dtype
     shape = h.shape
     x = h.reshape(-1, shape[-1]).float()
@@ -82,5 +91,5 @@ def ffn_int8_apply(h, wi_q, wi_s, wo_q, wo_s, out_dtype=None):
     hmid = torch.relu(acc.float() * (sx / 127.0) * wi_s)
     sh = torch.clamp_min(hmid.amax(dim=-1, keepdim=True), 1e-12)
     acc2 = _int8_mm(_quantize_rows(hmid, sh), wo_q)
-    y = acc2.float() * (sh / 127.0) * wo_s
+    y = all_reduce_sum(acc2.float() * (sh / 127.0) * wo_s, tp_group)
     return y.to(out_dtype).reshape(shape)

@@ -303,25 +303,29 @@ class RetrievalEngine(BaseEngine):
 
     ``params`` is a state_dict (models/convert.py). The decode runs in
     bfloat16 on ``device`` ("cuda" unless the caller passes another; no
-    CUDA raises RuntimeError)."""
+    CUDA raises RuntimeError).
+
+    ``mesh``: queries split over the mesh's 'data' axis
+    (decode/beam.py::make_sharded_beam_search_fn), so every rung of
+    ``batch_sizes`` must divide it. The engine is then SPMD: every rank
+    builds it and calls ``retrieve_batch`` with the same texts. ``submit``
+    (and so HTTP) over more than one rank is not ported: rank 0 would
+    have to drive the other ranks' searches."""
 
     def __init__(self, cfg, params, tok, trie, docids: Sequence[str],
                  serve_cfg: ServeConfig = ServeConfig(), warm: bool = True,
                  mesh=None, device=None):
         import torch
 
+        from ripor_tpu_torch.core.mesh import DATA_AXIS, axis_size
         from ripor_tpu_torch.decode.beam import (make_beam_search_fn,
+                                                 make_sharded_beam_search_fn,
                                                  resolve_device)
         from ripor_tpu_torch.decode.quant_gate import ensure_quant_validated
         from ripor_tpu_torch.models.ripor import RiporModel
         from ripor_tpu_torch.trie.succinct import (succinct_tables,
                                                    tables_to_torch)
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "data-parallel serving over a mesh is not ported to "
-                "ripor_tpu_torch yet (a later slice of the port: ROADMAP.md "
-                "Queue 1 item 5)")
         ensure_quant_validated(serve_cfg.kv_cache_quant,
                                bool(serve_cfg.ffn_int8),
                                ckpt_dir=serve_cfg.ckpt_dir)
@@ -330,10 +334,21 @@ class RetrievalEngine(BaseEngine):
         self._tok = tok
         self._trie = trie
         self._docids = list(docids)
-        self._fn = make_beam_search_fn(
-            cfg, serve_cfg.num_beams, constrained=serve_cfg.constrained,
-            kv_cache_quant=serve_cfg.kv_cache_quant,
-            ffn_int8=serve_cfg.ffn_int8, device=self._device)
+        self._mesh = mesh
+        kw = dict(constrained=serve_cfg.constrained,
+                  kv_cache_quant=serve_cfg.kv_cache_quant,
+                  ffn_int8=serve_cfg.ffn_int8, device=self._device)
+        if mesh is not None:
+            ndata = axis_size(mesh, DATA_AXIS)
+            bad = [b for b in serve_cfg.batch_sizes if b % ndata != 0]
+            if bad:
+                raise ValueError(
+                    f"batch_sizes {bad} do not divide the mesh 'data' axis "
+                    f"({ndata}) — pick rungs that are multiples of it")
+            self._fn = make_sharded_beam_search_fn(
+                cfg, serve_cfg.num_beams, mesh, **kw)
+        else:
+            self._fn = make_beam_search_fn(cfg, serve_cfg.num_beams, **kw)
         if serve_cfg.param_dtype:
             pd = getattr(torch, serve_cfg.param_dtype)
             params = {k: v.to(pd) if v.is_floating_point() else v
@@ -343,6 +358,21 @@ class RetrievalEngine(BaseEngine):
         self._model.load_state_dict(params)
         self._tables = tables_to_torch(succinct_tables(trie), self._device)
         super().__init__(serve_cfg, warm=warm)
+
+    def _one_rank(self):
+        if self._mesh is not None and self._mesh.size() > 1:
+            raise NotImplementedError(
+                "submit/HTTP over a mesh of more than one rank is not ported "
+                "(ROADMAP.md Queue 1 item 4: rank 0 would drive the other "
+                "ranks); every rank calls retrieve_batch instead")
+
+    def start(self):
+        self._one_rank()
+        super().start()
+
+    def submit(self, text: str) -> Future:
+        self._one_rank()
+        return super().submit(text)
 
     def _dispatch(self, texts: Sequence[str]):
         """Tokenize + launch one decode; returns the device tensors (the

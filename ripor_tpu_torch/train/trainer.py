@@ -17,7 +17,7 @@ optax state's, so a JAX run carries across (models/convert.py:
 
 The model holds the live parameters; training runs in the model's dtype
 and on its device. Mesh data parallelism and ZeRO opt-state sharding wait
-for ROADMAP.md Queue 1 item 5 and raise.
+for ROADMAP.md Queue 1 item 3 (data-parallel training) and raise.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ import torch
 
 from ripor_tpu_torch.train import losses as loss_lib
 
-_ITEM5 = "(ROADMAP.md Queue 1 item 5, DP/TP)"
+_ITEM3 = "(ROADMAP.md Queue 1 item 3, data-parallel training)"
 
 
 @dataclasses.dataclass
@@ -45,7 +45,7 @@ class TrainConfig:
     # read by neither package: the trainer computes in the model's dtype
     # (float32 from run_train_from_config), as the JAX trainer does
     bf16_compute: bool = True
-    # ZeRO-style Adam mu/nu sharding over a mesh: not ported (item 5)
+    # ZeRO-style Adam mu/nu sharding over a mesh: not ported (Queue 1 item 3)
     shard_opt_state: bool = False
     # Decoupled L2-SP anchor: each step, AFTER the optimizer update, params
     # relax toward the anchor checkpoint: p <- p - r*(p - anchor) with
@@ -238,7 +238,7 @@ class Trainer:
         if mesh is not None or cfg.shard_opt_state:
             raise NotImplementedError(
                 "Trainer(mesh=...) and shard_opt_state are not ported to "
-                f"ripor_tpu_torch yet {_ITEM5}")
+                f"ripor_tpu_torch yet {_ITEM3}")
         if cfg.l2sp_rate > 0 and anchor_params is None:
             raise ValueError("l2sp_rate > 0 requires anchor_params")
         self.model = model

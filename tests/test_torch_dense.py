@@ -110,10 +110,11 @@ def test_int8_corpus_bit_equal_and_topk_match_jax():
 
 
 def test_mesh_refused():
+    """An Int8Corpus (the single-card capacity path) is refused on a mesh,
+    before the mesh is read; a dense corpus on a mesh:
+    tests/test_torch_mesh.py."""
     q, d = data(64)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        retriever.dense_topk(q, d, 5, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Int8Corpus"):
         retriever.dense_topk(q, retriever.device_corpus(
             d, dtype=torch.int8, device=CPU), 5, mesh=object())
 

@@ -62,7 +62,11 @@ def test_no_jax_flax_or_reference_modules_imported():
             "ripor_tpu_torch.pipeline.flywheel",
             "ripor_tpu_torch.pipeline.runner",
             "ripor_tpu_torch.pipeline.full_recipe",
-            "ripor_tpu_torch.train.calibrate"} <= set(mods)
+            "ripor_tpu_torch.train.calibrate",
+            "ripor_tpu_torch.core.mesh",
+            "ripor_tpu_torch.parallel",
+            "ripor_tpu_torch.parallel.reference",
+            "ripor_tpu_torch.parallel.sharding"} <= set(mods)
     r = _run(f"""
         import importlib, sys
         for m in {mods!r}:
@@ -136,6 +140,50 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         run_full_recipe(str(tmp_path / "ws"), "docs", "queries", "qrel")
     assert not (tmp_path / "ws").exists()
+
+
+def test_mesh_entry_points_default_to_cuda_and_raise_without_it():
+    """In a process of its own: a one-rank CPU mesh leaves a process
+    group behind."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    r = _run("""
+        import numpy as np, pytest, torch
+        from ripor_tpu_torch.core.mesh import (create_mesh,
+                                               distributed_init, local_mesh)
+        from ripor_tpu_torch.data.tokenizer import HashTokenizer
+        from ripor_tpu_torch.decode import (make_sharded_beam_search_fn,
+                                            make_tp_beam_search_fn)
+        from ripor_tpu_torch.evaluation.retriever import dense_topk
+        from ripor_tpu_torch.models import init_params, ripor_small
+        from ripor_tpu_torch.serve import RetrievalEngine, ServeConfig
+        from ripor_tpu_torch.trie import build_trie
+
+        for call in (create_mesh, local_mesh,
+                     lambda: distributed_init("localhost:1", 2, 0)):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                call()
+        mesh = create_mesh(device_type="cpu")
+        assert mesh.shape == (1, 1)
+        with pytest.raises(RuntimeError, match="already initialised"):
+            distributed_init("localhost:1", 2, 0, backend="gloo")
+        cfg = ripor_small(M=8, K=8)
+        for make in (make_sharded_beam_search_fn, make_tp_beam_search_fn):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                make(cfg, 4, mesh)
+        sd = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        codes = np.random.default_rng(0).integers(0, 8, (20, 8))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            RetrievalEngine(cfg, sd, HashTokenizer(100), build_trie(codes, 8),
+                            [str(i) for i in range(20)],
+                            ServeConfig(num_beams=4, batch_sizes=(1,)),
+                            mesh=mesh)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            dense_topk(np.ones((2, 4), np.float32),
+                       np.ones((8, 4), np.float32), 3, mesh=mesh)
+        print("OK")
+    """)
+    assert r.returncode == 0 and "OK" in r.stdout, r.stdout + r.stderr
 
 
 def test_cpu_run_launches_no_kernel():

@@ -592,6 +592,6 @@ def test_training_refusals(world):
     cfg, _, params, _ = world
     sd = port_state_dict(params, cfg)
     for kw, tkw in (({"mesh": object()}, {}), ({}, {"shard_opt_state": True})):
-        with pytest.raises(NotImplementedError, match="item 5"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
             Trainer(RiporModel(cfg, device="cpu"), TrainConfig(**tkw), sd,
                     **kw)

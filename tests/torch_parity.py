@@ -34,3 +34,42 @@ def port_model(params, cfg, dtype=torch.float32):
     model = RiporModel(cfg, dtype=dtype, device="cpu")
     model.load_state_dict(port_state_dict(params, cfg))
     return model
+
+
+def flax_tree(state_dict):
+    """The flax param tree (numpy leaves) of a port RiporModel state_dict:
+    the inverse of params_from_jax (``layers.<i>`` -> ``layer_<i>``, a
+    Linear ``weight`` [out, in] -> a Dense ``kernel`` [in, out], the token
+    Embedding ``weight`` -> ``embedding``)."""
+    tree = {}
+    for name, v in state_dict.items():
+        parts = name.split(".")
+        path = []
+        i = 0
+        while i < len(parts):
+            if parts[i] == "layers":
+                path.append(f"layer_{parts[i + 1]}")
+                i += 2
+                continue
+            path.append(parts[i])
+            i += 1
+        arr = v.detach().cpu().numpy()
+        if path[-1] == "weight":
+            if path[:-1] == ["shared"]:
+                path[-1] = "embedding"
+            else:
+                path[-1] = "kernel"
+                arr = arr.T
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(arr)
+    return tree
+
+
+def seeded_params(cfg, seed):
+    """Flax params for ``cfg`` drawn from a seed without a JAX init (no
+    compile): the port's init_params, as a flax tree."""
+    from ripor_tpu_torch.models import init_params
+    return flax_tree(init_params(cfg, torch.Generator().manual_seed(seed),
+                                 device="cpu"))
