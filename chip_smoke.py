@@ -109,20 +109,18 @@ nonzero and no result line is printed:
      ``rerank-task-merge`` (equal to one rank), and the RIPOR self-rerank
      task + merge (equal to rerank_query_smtids);
  11. the pipeline, whose beam searches launch K1-K3 (megarow) and, at
-     prefix 4, K5, K3, K6 (non-deferred): (a) ``datagen`` as
-     a process on phase 7's workspace over phase 10's teacher trainset
-     (16 queries x 100 docids), beam 100, prefix lengths 4/8/16/32, with
-     the self teacher and phase 10's BERT teacher (a text for each of the
-     100,000 docs), each file equal to datagen_round in process (same
-     smtids, scores within 1e-5); (b) run_full_recipe at
+     prefix 4, K5, K3, K6 (non-deferred): (a) datagen_round in process
+     on phase 7's workspace over phase 10's teacher trainset (16 queries
+     x 100 docids), beam 100, prefix lengths 4/8/16/32, with the self
+     teacher and phase 10's BERT teacher (a text for each of the 100,000
+     docs); (b) run_full_recipe at
      ripor_base(M=32, K=256) with a MiniLM-L6 teacher on
-     tests/test_full_recipe.py's corpus at 2,048 docs and 128 queries,
+     tests/test_full_recipe.py's corpus at 2,048 docs and 64 queries,
      every epoch count 1, beam = topk = 100, curriculum 4/8/16/32,
      teacher-scale calibration, prefix_eval (4, 8) and the teacher-margin
      gate open (one teacher epoch leaves the margin at rounding level):
      its artifacts,
-     checkpoints and finite metrics, a resume that trains nothing, and
-     the seconds of each stage; (c) ``full-recipe`` as a process at
+     checkpoints and finite metrics, and the seconds of each stage; (c) ``full-recipe`` as a process at
      tests/test_full_recipe.py::RECIPE_KW on its 24-doc corpus, which
      must reach that test's floors; (d) ``pipeline`` over phase 7's
      workspace (retrieve at beam 1000 -> evaluate -> datagen), resumed,
@@ -149,7 +147,19 @@ nonzero and no result line is printed:
      partial sums (parallel/reference.py::split_sums; the plain search's
      movement is reported), the toy TP searches at that test's bars;
      dense_topk's sets apart from ties. Phase 2 holds every kernel launch
-     of these searches at its shape (mesh_searches).
+     of these searches at its shape (mesh_searches). Then, in the same
+     ranks: (d) the engine served on the mesh: both ranks start() it,
+     rank 0 serves HTTP on loopback (phase 4's 8 queries one by one and
+     as one batch) and submit, its answers equal to retrieve_batch on the
+     mesh, then both stop(), counted as (a); (e) data-parallel training at
+     data=2 and full t5-base width (f32, lng_knp_margin_mse, phase 8's
+     trainset, global B=16): one step at dropout 0 against this process's
+     one-process Trainer on the same batch, then 2 warm-up and 3 timed
+     steps replicated and with ZeRO (shard_opt_state): ZeRO's params
+     bit-equal to replicated, every rank's params equal, each rank's Adam
+     moments half of replicated; ms a step, the collectives' ms and peak
+     memory a rank. (Two ranks time-share the card and their collectives
+     go through host copies: the times say nothing of two cards.)
 
 Prints the card's name and power limit (nvidia-smi), per-phase lines, then
 a ``{"kernels": [...]}`` line and, last, the contract line
@@ -1698,6 +1708,29 @@ def param_agreement(got, want, rtol=1e-5, atol=1e-6, steady=None):
     return out
 
 
+def train_batches(world, tmp):
+    """Phase 8's batches (B=16): MarginMSECollator over the synthetic
+    trainset ``tmp/train.jsonl`` on phase 7's workspace and queries."""
+    import os
+
+    from ripor_tpu_torch.data.collators import (MarginMSECollator,
+                                                batches_from_teacher_examples)
+    from ripor_tpu_torch.data.datasets import (Collection,
+                                               TeacherScoreExamples)
+    from ripor_tpu_torch.pipeline import load_tokenizer
+
+    examples = TeacherScoreExamples(os.path.join(tmp, "train.jsonl"))
+    check(examples.prefix_lengths_present() == TRAIN_PREFIXES,
+          "8b: prefix scores missing")
+    coll = MarginMSECollator(
+        load_tokenizer(os.path.join(tmp, "ws", "tokenizer.json")),
+        Collection(os.path.join(tmp, "queries")),
+        dict(zip(world["docids"], world["codes"])), max_length=TRAIN_LQ,
+        prefix_lengths=TRAIN_PREFIXES)
+    return list(batches_from_teacher_examples(examples, coll, TRAIN_B,
+                                              seed=SEED))
+
+
 def train_phase(world, tmp):
     """Phase 8: training at full t5-base width and depth
     (ripor_base(M=32, K=256), 12 + 12 layers, float32 params and compute,
@@ -1715,12 +1748,8 @@ def train_phase(world, tmp):
     import os
 
     import torch
-    from ripor_tpu_torch.data.collators import (MarginMSECollator,
-                                                batches_from_teacher_examples)
-    from ripor_tpu_torch.data.datasets import (Collection,
-                                               TeacherScoreExamples)
+    from ripor_tpu_torch.data.datasets import Collection
     from ripor_tpu_torch.models import RiporModel, init_params, ripor_base
-    from ripor_tpu_torch.pipeline import load_tokenizer
     from ripor_tpu_torch.train import TrainConfig, Trainer, load_params
 
     check(not torch.backends.cuda.matmul.allow_tf32,
@@ -1802,18 +1831,9 @@ def train_phase(world, tmp):
     # (b) speed: Trainer.run over collated batches
     ws = os.path.join(tmp, "ws")
     qdir = os.path.join(tmp, "queries")
-    queries = Collection(qdir)
     trainset = os.path.join(tmp, "train.jsonl")
-    write_trainset(trainset, queries.ids, 10 * TRAIN_B, rng)
-    examples = TeacherScoreExamples(trainset)
-    check(examples.prefix_lengths_present() == TRAIN_PREFIXES,
-          "8b: prefix scores missing")
-    coll = MarginMSECollator(
-        load_tokenizer(os.path.join(ws, "tokenizer.json")), queries,
-        dict(zip(world["docids"], codes)), max_length=TRAIN_LQ,
-        prefix_lengths=TRAIN_PREFIXES)
-    batches = list(batches_from_teacher_examples(examples, coll, TRAIN_B,
-                                                 seed=SEED))
+    write_trainset(trainset, Collection(qdir).ids, 10 * TRAIN_B, rng)
+    batches = train_batches(world, tmp)
     check(len(batches) == 10, f"8b: {len(batches)} batches")
     flops = train_step_flops(t5, TRAIN_B, TRAIN_LQ, M)
     positions = TRAIN_B * (TRAIN_LQ + 2 * M)
@@ -3203,7 +3223,7 @@ P11 = dict(
     # epoch leaves its pos-neg margin at rounding level (either sign), so
     # the margin gate is open: (b) tests the plumbing at full width, and
     # (c) the learning
-    recipe_cfg=None, recipe_docs=2048, recipe_queries=128, recipe_vocab=4096,
+    recipe_cfg=None, recipe_docs=2048, recipe_queries=64, recipe_vocab=4096,
     teacher_geometry=dict(d_model=384, num_layers=6, num_heads=12,
                           d_ff=1536, max_position=512),
     recipe_kw=dict(phase1_epochs=1, teacher_epochs=1, s2s_epochs=1,
@@ -3288,15 +3308,15 @@ def check_lng_knp(tag, got, plen, want=None, tol=1e-5):
 
 
 def datagen_check(world, phase11, tmp, sz):
-    """Phase 11 (a): ``datagen`` as a process of its own on phase 7's
-    workspace (its checkpoint, 100,000-doc codes, 16 queries) over phase
-    10's teacher trainset (16 queries x 100 docids), at beam 100 and
-    prefix lengths 4/8/16/32, with ``--teacher self`` and ``--teacher
-    bert`` (phase 10's bert_bce checkpoint; --docs a text for every docid
-    of the corpus, since the beams reach any prefix group). Each file must
-    equal datagen_round in this process (same smtids, scores within
-    1e-5), which runs with the counters zeroed just before and read just
-    after: K1-K3 must launch."""
+    """Phase 11 (a): datagen_round on phase 7's workspace (its
+    checkpoint, 100,000-doc codes, 16 queries) over phase 10's teacher
+    trainset (16 queries x 100 docids), at beam 100 and prefix lengths
+    4/8/16/32, with the self teacher and the bert teacher (phase 10's
+    bert_bce checkpoint; a text for every docid of the corpus, written to
+    ``tmp``/docs11, since the beams reach any prefix group), with the
+    counters zeroed just before and read just after: K1-K3 must launch.
+    Returns each round's examples by (teacher, prefix length): (d) holds
+    CLI ``datagen`` against them."""
     import os
 
     import torch
@@ -3306,12 +3326,10 @@ def datagen_check(world, phase11, tmp, sz):
                                                      self_rerank_pair_scores)
     from ripor_tpu_torch.models import RiporConfig
     from ripor_tpu_torch.pipeline import load_tokenizer
-    from ripor_tpu_torch.pipeline.flywheel import (datagen_round, read_jsonl,
-                                                   search_model)
+    from ripor_tpu_torch.pipeline.flywheel import datagen_round, search_model
     from ripor_tpu_torch.train import load_params
 
     dev = sz["device"]
-    repo = os.path.dirname(os.path.abspath(__file__))
     ws, qdir = os.path.join(tmp, "ws"), os.path.join(tmp, "queries")
     trainset = os.path.join(tmp, "teacher_trainset.jsonl")
     teacher = os.path.join(ws, "checkpoints", "teacher")
@@ -3326,22 +3344,6 @@ def datagen_check(world, phase11, tmp, sz):
             pick = rng.integers(0, len(words), rng.integers(lo, hi + 1))
             f.write(f"{d}\t{' '.join(words[pick])}\n")
     docs_s = time.monotonic() - t0
-    plens = [str(p) for p in sz["prefix_lengths"]]
-    base = ["datagen", "--workspace", ws, "--queries", qdir,
-            "--teacher-trainset", trainset, "--beam", str(sz["beam"]),
-            "--prefix-lengths", *plens, "--device", dev]
-    bert = ["--teacher", "bert", "--teacher-ckpt", teacher, "--docs",
-            docs_dir]
-    files, cli_timing = {}, {}
-    for name, extra in (("self", []), ("bert", bert)):
-        t0 = time.monotonic()
-        out = rerank_cli(base + extra, f"datagen {name}", repo)
-        cli_timing[name] = {"process_s": time.monotonic() - t0, "rounds": [
-            json.loads(ln.split(" ", 1)[1]) for ln in out.splitlines()
-            if ln.startswith("datagen_timing ")]}
-        files[name] = {p: read_jsonl(lng_knp_file(ws, p))
-                       for p in sz["prefix_lengths"]}
-
     ckpt = os.path.join(ws, "checkpoints", "final")
     cfg = RiporConfig.load(os.path.join(ckpt, "config.json"))
     params = load_params(ckpt)
@@ -3362,7 +3364,7 @@ def datagen_check(world, phase11, tmp, sz):
                                            pairs, batch_size=32,
                                            max_length=64)}
     searcher = search_model(cfg, params, torch.bfloat16, dev)
-    rounds = []
+    rounds, merged_by = [], {}
     zero_launches()
     for name, score in scorers.items():
         for plen in sz["prefix_lengths"]:
@@ -3381,8 +3383,8 @@ def datagen_check(world, phase11, tmp, sz):
                            "seconds": time.monotonic() - t0,
                            "pairs_scored": n_pairs[0],
                            "examples": len(merged)})
-            check_lng_knp(f"11a {name} p{plen}", files[name][plen], plen,
-                          want=list(map(dict, merged)))
+            merged_by[name, plen] = list(map(dict, merged))
+            check_lng_knp(f"11a {name} p{plen}", merged_by[name, plen], plen)
     launched = need_launches("11a datagen_round", MEGAROW_KERNELS, phase11)
     # the steps that phase 2 checks (pipeline_searches) are these rounds'
     want = sum_counts(decode_launches(cfg.t5.num_decoder_layers, p,
@@ -3394,8 +3396,9 @@ def datagen_check(world, phase11, tmp, sz):
     print("pipeline_datagen", json.dumps({
         "queries": len(q2d), "docids_a_query": max(map(len, q2d.values())),
         "beam": sz["beam"], "docs_written": len(world["docids"]),
-        "docs_s": docs_s, "cli": cli_timing, "in_process": rounds,
+        "docs_s": docs_s, "in_process": rounds,
         "launches": launched}))
+    return merged_by
 
 
 def recipe_run(ws, docs_dir, queries_dir, qrel_path, **kw):
@@ -3446,13 +3449,13 @@ def recipe_check(world, phase11, tmp, sz):
     """Phase 11 (b): run_full_recipe at full width on the card: a
     ripor_base(M=32, K=256) student from init_params, the BertCrossEncoder
     teacher at MiniLM-L6 geometry, tests/test_full_recipe.py's corpus at
-    2,048 docs and 128 queries with the word tokenizer, every epoch count
+    2,048 docs and 64 queries with the word tokenizer, every epoch count
     1, batch 16, beam = topk = 100, curriculum 4/8/16/32, teacher-scale
     calibration, prefix_eval (4, 8). Counters zeroed just before and read
     just after: K1-K3 must launch. Every artifact and checkpoint of
     tests/test_full_recipe.py::test_full_recipe_runs_and_holds_floors;
-    finite metrics; a second call returns the same metrics and trains
-    nothing. Prints the seconds of each stage from the workspace log."""
+    finite metrics. Prints the seconds of each stage from the workspace
+    log. (c) resumes the recipe.)"""
     import os
 
     import torch
@@ -3501,13 +3504,6 @@ def recipe_check(world, phase11, tmp, sz):
         check_lng_knp(f"11b p{p}", read_jsonl(lng_knp_file(ws, p)), p)
     stages = stage_seconds(records, time.monotonic())
     torch.cuda.empty_cache()
-
-    t0 = time.monotonic()
-    again, _, out = recipe_run(ws, *corpus, **kw)
-    resume_s = time.monotonic() - t0
-    check(again == metrics, f"11b resume: {again} != {metrics}")
-    check(": training" not in out and "datagen at prefix" not in out,
-          "11b resume trained or generated data again")
     with open(os.path.join(ws, "checkpoints", "bert_teacher",
                            "teacher_quality.json")) as f:
         quality = json.load(f)
@@ -3515,7 +3511,7 @@ def recipe_check(world, phase11, tmp, sz):
         "docs": sz["recipe_docs"], "queries": sz["recipe_queries"],
         "d_model": cfg.t5.d_model, "layers": cfg.t5.num_layers, "M": cfg.M,
         "K": cfg.K, "teacher": sz["teacher_geometry"], "seconds": run_s,
-        "resume_s": resume_s, "metrics": metrics,
+        "metrics": metrics,
         "teacher_quality": quality, "launches": launched,
         "stage_s": stages}))
 
@@ -3523,7 +3519,9 @@ def recipe_check(world, phase11, tmp, sz):
 def floors_check(tmp, sz):
     """Phase 11 (c): ``full-recipe`` as a process of its own at
     tests/test_full_recipe.py::RECIPE_KW on its 24-doc corpus, on the
-    card: phases 2 and 3 must reach that test's floors."""
+    card: phases 2 and 3 must reach that test's floors. A second call on
+    the same workspace restores every stage's checkpoint: it must return
+    the same metrics and neither train nor generate data."""
     import os
     repo = os.path.dirname(os.path.abspath(__file__))
     root = os.path.join(tmp, "floors11")
@@ -3532,30 +3530,45 @@ def floors_check(tmp, sz):
     conf = os.path.join(root, "recipe_kw.json")
     with open(conf, "w") as f:
         json.dump(sz["floors_kw"], f)
+    argv = ["full-recipe", "--workspace", os.path.join(root, "ws"),
+            "--docs", docs_dir, "--queries", queries_dir, "--qrel",
+            qrel_path, "--config", conf, "--device", sz["device"]]
+
+    def run(tag):
+        out = rerank_cli(argv, tag, repo)
+        lines = out.splitlines()
+        start = max(i for i, ln in enumerate(lines) if ln == "{")
+        return json.loads("\n".join(lines[start:])), out
     t0 = time.monotonic()
-    out = rerank_cli(["full-recipe", "--workspace", os.path.join(root, "ws"),
-                      "--docs", docs_dir, "--queries", queries_dir, "--qrel",
-                      qrel_path, "--config", conf, "--device", sz["device"]],
-                     "full-recipe", repo)
+    metrics, _ = run("full-recipe")
     process_s = time.monotonic() - t0
-    lines = out.splitlines()
-    start = max(i for i, ln in enumerate(lines) if ln == "{")
-    metrics = json.loads("\n".join(lines[start:]))
     check_metrics("11c", metrics, ["phase2", "phase3"])
+    t0 = time.monotonic()
+    again, out = run("full-recipe resumed")
+    resume_s = time.monotonic() - t0
+    check(list(again) == list(metrics) and all(
+        abs(again[t][k] - v) <= 1e-6 for t, m in metrics.items()
+        for k, v in m.items()), f"11c resume: {again} != {metrics}")
+    check("restoring existing checkpoint" in out
+          and ": training" not in out and "datagen at prefix" not in out,
+          "11c resume trained or generated data again")
     for phase, floors in RECIPE_FLOORS.items():
         for k, floor in floors.items():
             check(metrics[phase][k] >= floor,
                   f"11c: {phase} {k} {metrics[phase][k]} below {floor}")
     print("pipeline_floors", json.dumps({
         "metrics": metrics, "floors": RECIPE_FLOORS,
-        "process_s": process_s}))
+        "process_s": process_s, "resume_s": resume_s}))
 
 
-def runner_check(world, phase11, tmp, sz):
+def runner_check(world, phase11, tmp, sz, rounds):
     """Phase 11 (d): ``pipeline`` over phase 7's workspace: retrieve (beam
     1000) -> evaluate -> datagen (self teacher). The second run runs no
-    stage, ``--from evaluate`` re-runs the last two, and each output
-    equals the subcommand run directly."""
+    stage, ``--from evaluate`` re-runs the last two; retrieve and evaluate
+    equal the subcommand run directly, and datagen's files (a)'s
+    datagen_round at each prefix length (``rounds``, same smtids, scores
+    within 1e-5). Then CLI ``datagen --teacher bert`` as a process of its
+    own at the first prefix length, held against (a)'s bert round."""
     import os
 
     from ripor_tpu_torch.pipeline.flywheel import read_jsonl
@@ -3598,12 +3611,22 @@ def runner_check(world, phase11, tmp, sz):
                    read_run(os.path.join(ws, "run11.json")))
     direct = json.loads(run_cli(evaluate, "direct evaluate"))
     check(mrr == [direct, direct], f"11d evaluate: {mrr} vs {direct}")
-    run_cli(datagen + dev, "direct datagen")
     for p in plens:
-        check_lng_knp(f"11d p{p}", read_jsonl(lng_knp_file(ws, p)), p,
-                      want=files[p])
+        check_lng_knp(f"11d p{p}", files[p], p, want=rounds["self", p])
+    repo = os.path.dirname(os.path.abspath(__file__))
+    bert = ["--teacher", "bert", "--teacher-ckpt",
+            os.path.join(ws, "checkpoints", "teacher"), "--docs",
+            os.path.join(tmp, "docs11")]
+    t0 = time.monotonic()
+    rerank_cli(datagen[:-len(plens)] + [str(plens[0])] + bert + dev,
+               "datagen bert", repo)
+    bert_s = time.monotonic() - t0
+    check_lng_knp(f"11d bert p{plens[0]}",
+                  read_jsonl(lng_knp_file(ws, plens[0])), plens[0],
+                  want=rounds["bert", plens[0]])
     print("pipeline_runner", json.dumps({
-        "stages_ran": ran, "mrr": direct, "seconds": pipeline_s}))
+        "stages_ran": ran, "mrr": direct, "seconds": pipeline_s,
+        "datagen_bert_process_s": bert_s}))
 
 
 def pipeline_phase(world, phase11, tmp, sz=P11):
@@ -3611,11 +3634,13 @@ def pipeline_phase(world, phase11, tmp, sz=P11):
     (d) runner_check; the launches of K1-K3 in (a)'s and (b)'s runs go to
     ``phase11``."""
     t0 = time.monotonic()
-    parts = {}
-    for name, fn in (("a", lambda: datagen_check(world, phase11, tmp, sz)),
+    parts, rounds = {}, {}
+    for name, fn in (("a", lambda: rounds.update(
+                          datagen_check(world, phase11, tmp, sz))),
                      ("b", lambda: recipe_check(world, phase11, tmp, sz)),
                      ("c", lambda: floors_check(tmp, sz)),
-                     ("d", lambda: runner_check(world, phase11, tmp, sz))):
+                     ("d", lambda: runner_check(world, phase11, tmp, sz,
+                                                rounds))):
         t1 = time.monotonic()
         fn()
         parts[name] = time.monotonic() - t1
@@ -3629,7 +3654,9 @@ def pipeline_phase(world, phase11, tmp, sz=P11):
 # passes dict(P12, device="cpu", <small sizes>) with a small world.
 P12 = dict(device="cuda", beam=1000, batch=8, quant="int4",
            dense_rows=1_000_000, dense_dim=768, dense_queries=64,
-           dense_k=1000, timeout=480)
+           dense_k=1000, timeout=480,
+           # (e) trains this config (None: ripor_base(M=32, K=256))
+           train_cfg=None)
 # The TP searches at tests/test_sharded_decode.py's geometry
 # (ripor_small(M=4, K=8), f32, 5 beams, 8 queries of 9 tokens, 60 docs),
 # with that test's bars: (search kwargs, rtol, atol, states compared)
@@ -3661,8 +3688,8 @@ def mesh_rank(rank, world_size, tmp):
     TP search in f32 on an exact cache once, counted the same way (its
     time includes the build of the rank's model); the all-reduces of one
     TP step alone; the TP searches at TOY_TP's geometry; then (c)
-    RetrievalEngine(mesh=) and dense_topk(mesh=) at data=2. Writes its
-    results to ``tmp/rank<R>.pkl``."""
+    RetrievalEngine(mesh=) and dense_topk(mesh=) at data=2, between them
+    (d) that engine served (serve_on_mesh), and (e) train_on_mesh. Writes its results to ``tmp/rank<R>.pkl``."""
     import os
     import pickle
 
@@ -3750,14 +3777,165 @@ def mesh_rank(rank, world_size, tmp):
                     kv_cache_quant=sz["quant"]),
         mesh=meshes["dp"], device=dev)
     out["engine"] = eng.retrieve_batch(w["queries"][:Bq])
+    out["serve"] = serve_on_mesh(eng, w["queries"][:Bq])
     del eng
     q, corpus = dense_inputs(sz)
     t0 = time.monotonic()
     out["dense"] = dense_topk(q, corpus, sz["dense_k"], mesh=meshes["dp"])
     out["dense_s"] = time.monotonic() - t0
+    del q, corpus
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    out["train"] = train_on_mesh(w, meshes["dp"], tmp, dev)
     with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
     torch.distributed.destroy_process_group()
+
+
+def post_queries(port, queries):
+    """POST /retrieve on loopback -> (status, results as (docid, score)
+    lists, seconds)."""
+    import http.client
+    t0 = time.monotonic()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request("POST", "/retrieve", json.dumps({"queries": queries}),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    body = json.loads(resp.read())
+    conn.close()
+    return (resp.status, [[(d, v) for d, v in r] for r in
+                          body.get("results", [])], time.monotonic() - t0)
+
+
+def serve_on_mesh(eng, queries):
+    """Phase 12 (d) on one rank: serve_http on every rank (rank 0 serves,
+    the other follows its batches), rank 0 posts ``queries`` one by one,
+    then as one batch, then submits them all at once; then every rank
+    stops the engine. The launch counters are zeroed just before and
+    read just after."""
+    import threading
+
+    from ripor_tpu_torch.ops import KERNEL_LAUNCHES
+    from ripor_tpu_torch.serve.http import serve_http
+
+    hist0 = sum(eng.stats()["batch_hist"].values())
+    zero_launches()
+    t0 = time.monotonic()
+    server = serve_http(eng, port=0, block=False)
+    out = {}
+    if server is not None:
+        port = server.server_address[1]
+        out["http_single"] = [post_queries(port, [q]) for q in queries]
+        out["http_batch"] = post_queries(port, queries)
+        futures = [eng.submit(q) for q in queries]
+        out["submit"] = [f.result(timeout=600) for f in futures]
+        st = eng.stats()
+        out["batches"] = sum(st["batch_hist"].values()) - hist0
+        out["stats_p50_s"] = st["p50_s"]
+        server.shutdown()
+        server.server_close()
+    t1 = time.monotonic()
+    eng.stop()
+    out["stop_s"] = time.monotonic() - t1
+    out["s"] = time.monotonic() - t0
+    out["threads_left"] = [t.name for t in threading.enumerate()
+                           if t.name.startswith("ripor-")]
+    out["launches"] = {k: n for k, n in KERNEL_LAUNCHES.items() if n}
+    return out
+
+
+def params_checksum(params):
+    return float(sum(p.detach().double().abs().sum() for p in
+                     params.values()))
+
+
+def train_on_mesh(w, mesh, root, dev):
+    """Phase 12 (e) on one rank: Trainer(mesh=) at data=2 and
+    ``w["train_cfg"]`` (full t5-base width), f32, lng_knp_margin_mse over
+    phase 8's batches (global B=16, 8 a rank). One step at dropout 0
+    (rank 0 saves its params and all-reduced gradients for the parent),
+    then 2 warm-up and 3 timed
+    steps at dropout 0.1, replicated and with ZeRO: ms a step (the
+    StepTimer's CUDA events), the collectives' ms a step (synced host
+    time), peak memory and what the rank held before the Trainer, Adam
+    moment bytes, and whether ZeRO's params are bit-equal to
+    replicated."""
+    import dataclasses
+    import os
+
+    import torch
+    from ripor_tpu_torch.core.mesh import is_first_process
+    from ripor_tpu_torch.models import RiporModel
+    from ripor_tpu_torch.train import TrainConfig, Trainer
+
+    cfg = w["train_cfg"]
+    det = dataclasses.replace(cfg, t5=dataclasses.replace(
+        cfg.t5, dropout_rate=0.0))
+    sd = torch.load(os.path.join(root, "train_sd.pt"), mmap=True,
+                    weights_only=True)
+    batches = w["train"]
+    tcfg = TrainConfig(loss_type=TRAIN_LOSS)
+    out = {}
+    t0 = time.monotonic()
+    trainer = Trainer(RiporModel(det, device=dev), tcfg, sd, mesh=mesh)
+    _, metrics = trainer.run(batches[:1], seed=SEED)
+    out["step"] = {k: float(v) for k, v in metrics.items()}
+    out["step_checksum"] = params_checksum(trainer.state.params)
+    if is_first_process():
+        torch.save({"params": {k: p.detach().cpu() for k, p in
+                               trainer.state.params.items()},
+                    "grads": {k: p.grad.cpu() for k, p in
+                              trainer.state.params.items()}},
+                   os.path.join(root, "mesh_step.pt"))
+    out["step_s"] = time.monotonic() - t0
+    del trainer
+    final = None
+    for label, tc in (("replicated", tcfg),
+                      ("zero", dataclasses.replace(tcfg,
+                                                   shard_opt_state=True))):
+        reset_peak(dev)
+        held = (torch.cuda.memory_allocated() / 1e9 if dev == "cuda"
+                else "not measured")
+        logs, coll = [], []
+        trainer = None
+
+        def log(m, step):
+            logs.append({k: float(v) for k, v in m.items()})
+            coll.append(trainer.dp.collective_s)
+        trainer = Trainer(RiporModel(cfg, device=dev), tc, sd, mesh=mesh,
+                          log_fn=log)
+        t1 = time.monotonic()
+        trainer.run(batches[:5], seed=SEED, log_every=1)
+        sync(dev)
+        params = trainer.state.params
+        rec = {"wall_s": time.monotonic() - t1,
+               "ms_per_step_median": logs[-1]["p50_s"] * 1e3,
+               "ms_per_step_mean": logs[-1]["mean_s"] * 1e3,
+               "steps_timed": logs[-1]["steps"],
+               "collective_ms_per_step": (coll[-1] - coll[1]) / 3 * 1e3,
+               "peak_memory_gb": peak_gb(dev),
+               "memory_held_before_gb": held,
+               # the bytes the moments' storage holds (a view of a
+               # larger tensor would hold all of it)
+               "moment_gb": sum({t.untyped_storage().data_ptr():
+                                 t.untyped_storage().nbytes()
+                                 for m in ("mu", "nu") for t in
+                                 trainer.state.opt_state[m].values()
+                                 }.values()) / 1e9,
+               "checksum": params_checksum(params),
+               "losses": [m["loss"] for m in logs]}
+        rec["collective_share"] = (rec["collective_ms_per_step"]
+                                   / rec["ms_per_step_mean"])
+        if final is None:
+            # on the host, so that ZeRO's peak is not charged for it
+            final = {k: p.detach().cpu() for k, p in params.items()}
+        else:
+            rec["bit_equal_to_replicated"] = all(
+                torch.equal(p.cpu(), final[k]) for k, p in params.items())
+        out[label] = rec
+        del trainer, params
+    reset_peak(dev)
+    return out
 
 
 def dense_inputs(sz):
@@ -3776,6 +3954,176 @@ def live_equal(a, b, live):
     return bool(np.array_equal(a[live], b[live]))
 
 
+def train_reference(cfg, batch, sd, dev):
+    """Phase 12 (e)'s references, one-process Trainer steps at dropout 0
+    on one model: on the global batch -> (metrics, params, gradients) on
+    the host; the mean of the gradients of its two halves (each rank's
+    rows), summed on the host and halved as the ranks' all-reduce does;
+    and the params after one AdamW update from ``sd`` by that mean (what
+    the mesh's step must give)."""
+    import dataclasses
+
+    import torch
+    from ripor_tpu_torch.models import RiporModel
+    from ripor_tpu_torch.train import TrainConfig, Trainer, make_optimizer
+
+    det = dataclasses.replace(cfg, t5=dataclasses.replace(
+        cfg.t5, dropout_rate=0.0))
+    tcfg = TrainConfig(loss_type=TRAIN_LOSS)
+    model = RiporModel(det, device=dev)
+    half = len(batch["query_ids"]) // 2
+    out = []
+    for part in (batch, {k: v[:half] for k, v in batch.items()},
+                 {k: v[half:] for k, v in batch.items()}):
+        trainer = Trainer(model, tcfg, sd)
+        _, metrics = trainer.run([part], seed=SEED)
+        out.append(({k: float(v) for k, v in metrics.items()},
+                    {k: p.detach().cpu() for k, p in
+                     trainer.state.params.items()},
+                    {k: p.grad.cpu() for k, p in
+                     trainer.state.params.items()}))
+        del trainer
+        reset_peak(dev)
+    (metrics, params, grads), (_, _, g0), (_, _, g1) = out
+    halves = {k: (g0[k] + g1[k]).div_(2) for k in g0}
+    model.load_state_dict(sd)
+    named = dict(model.named_parameters())
+    tx = make_optimizer(tcfg)
+    with torch.no_grad():
+        tx.update({k: g.to(dev) for k, g in halves.items()},
+                  tx.init(named), named)
+    stepped = {k: p.detach().cpu() for k, p in named.items()}
+    del model, named
+    reset_peak(dev)
+    return metrics, params, grads, halves, stepped
+
+
+def grad_gaps(got, want):
+    """max |got - want| over max |want| of each gradient tensor, largest
+    first."""
+    gaps = {k: float((got[k] - w).abs().max()) / max(float(w.abs().max()),
+                                                     1e-30)
+            for k, w in want.items()}
+    return dict(sorted(gaps.items(), key=lambda kv: -kv[1]))
+
+
+def check_engine_bar(tag, got, want):
+    """Phase 12 (c)'s int4 bar on engine results: top docid equal, docid
+    sets differing by at most one, scores within 0.25 + 0.05 |score|.
+    Returns each query's docid-set difference."""
+    check(len(got) == len(want), f"{tag}: result count")
+    diff = []
+    for g_, w_ in zip(got, want):
+        check(g_[0][0] == w_[0][0], f"{tag}: top docid")
+        docs_g, docs_w = {d for d, _ in g_}, {d for d, _ in w_}
+        diff.append(min(len(docs_g), len(docs_w)) - len(docs_g & docs_w))
+        sg, sw = np.array([v for _, v in g_]), np.array([v for _, v in w_])
+        n = min(len(sg), len(sw))
+        check(np.all(np.abs(sg[:n] - sw[:n]) <= 0.25 + 0.05 * np.abs(sw[:n])),
+              f"{tag}: scores")
+    check(max(diff) <= 1, f"{tag}: docid sets {diff}")
+    return diff
+
+
+def check_mesh_serving(outs, ref_engine, cfg, phase12):
+    """Phase 12 (d)'s checks: HTTP (one by one and batched) and submit on
+    rank 0 equal to retrieve_batch on the mesh, and so within the int4 bar
+    of the one-rank engine; every rank stopped, its threads gone, and
+    launched the searches rank 0 served. Adds the launches to
+    ``phase12``."""
+    first = outs[0]["serve"]
+    want = outs[0]["engine"]
+    single = [r for status, res, _ in first["http_single"]
+              for r in res]
+    check(all(status == 200 for status, _, _ in first["http_single"])
+          and first["http_batch"][0] == 200, "12d: HTTP status")
+    for tag, got in (("http one by one", single),
+                     ("http batch", first["http_batch"][1]),
+                     ("submit", first["submit"])):
+        check(got == want, f"12d {tag}: differs from retrieve_batch")
+        check_engine_bar(f"12d {tag}", got, ref_engine)
+    n = first["batches"]
+    # the batch and the submits each coalesce into one or two batches
+    check(len(single) + 2 <= n <= len(single) + 4,
+          f"12d: {n} batches served")
+    need = decode_launches(cfg.t5.num_decoder_layers, cfg.M, n)
+    for r, o in enumerate(outs):
+        check(o["serve"]["threads_left"] == [],
+              f"12d rank {r}: threads left {o['serve']['threads_left']}")
+        check(o["serve"]["launches"] == need,
+              f"12d rank {r}: launches {o['serve']['launches']}, not {need}")
+        for k, c in o["serve"]["launches"].items():
+            phase12[k] = phase12.get(k, 0) + c
+    lat = sorted(t for _, _, t in first["http_single"])
+    return {"batches": n, "http_p50_ms": lat[len(lat) // 2] * 1e3,
+            "http_batch_ms": first["http_batch"][2] * 1e3,
+            "engine_p50_ms": first["stats_p50_s"] * 1e3,
+            "stop_s": [o["serve"]["stop_s"] for o in outs],
+            "seconds": [o["serve"]["s"] for o in outs],
+            "launches_per_rank": outs[0]["serve"]["launches"]}
+
+
+def check_mesh_training(outs, ref, root):
+    """Phase 12 (e)'s checks against the one-process steps ``ref``
+    (train_reference): losses within rtol 1e-5 and grad_norm within 1e-4
+    of the global batch's; params within the JAX package's bar (rtol
+    2e-4 / atol 1e-6, tests/test_train.py:283-284), or, where Adam's
+    first step (which divides by |g|) turns rounding noise near eps into
+    update noise past it, at most 1e-3 of them past it, each all-reduced
+    gradient tensor within 1e-4 of its largest entry of the one-process
+    mean of the two halves' gradients (the same sums: the global batch's
+    gradient differs from that mean by the batch split's own rounding,
+    reported as ``split_grad_gaps``), and every param within 1e-6 of one
+    one-process AdamW update by that mean (the update itself: step
+    count, bias correction, weight decay, schedule); every rank's params
+    equal; ZeRO bit-equal to replicated with about half the moment
+    bytes."""
+    import os
+
+    import torch
+
+    metrics, params, grads, halves, stepped = ref
+    got = torch.load(os.path.join(root, "mesh_step.pt"), weights_only=True)
+    step = outs[0]["train"]["step"]
+    check(set(step) == set(metrics), f"12e metrics {sorted(step)}")
+    rel = {k: abs(step[k] - v) / max(abs(v), 1e-30)
+           for k, v in metrics.items()}
+    check(max(v for k, v in rel.items() if k != "grad_norm") <= 1e-5
+          and rel["grad_norm"] <= 1e-4, f"12e: step metrics {rel}")
+    agree = param_agreement(got["params"], params, rtol=2e-4, atol=1e-6)
+    update = param_agreement(got["params"], stepped, rtol=0.0, atol=1e-6)
+    gaps = grad_gaps(got["grads"], halves)
+    split = grad_gaps(halves, grads)
+    mesh_full = grad_gaps(got["grads"], grads)
+    rec = {"step": step, "rel_diff": rel, "params": agree,
+           "params_to_halves_update": update,
+           "grad_gaps_to_halves": dict(list(gaps.items())[:5]),
+           "grad_gaps_to_global": dict(list(mesh_full.items())[:5]),
+           "split_grad_gaps": dict(list(split.items())[:5])}
+    print("mesh_train_parity", json.dumps(rec))
+    check(agree["loose_share"] == 0
+          or (agree["loose_share"] <= 1e-3 and max(gaps.values()) <= 1e-4
+              and update["loose_share"] == 0),
+          f"12e: params {agree}, against the halves' update {update}, "
+          f"gradients {list(gaps.items())[:3]}")
+    check(len({o["train"]["step_checksum"] for o in outs}) == 1,
+          "12e: ranks' params differ after the step")
+    for label in ("replicated", "zero"):
+        recs = [o["train"][label] for o in outs]
+        check(len({r["checksum"] for r in recs}) == 1,
+              f"12e {label}: ranks' params differ")
+        check(all(np.isfinite(r["losses"]).all() for r in recs),
+              f"12e {label}: a loss is not finite")
+        rec[label] = recs
+    for r, o in enumerate(outs):
+        z, p = o["train"]["zero"], o["train"]["replicated"]
+        check(z["bit_equal_to_replicated"],
+              f"12e rank {r}: ZeRO params differ from replicated")
+        check(0.45 <= z["moment_gb"] / p["moment_gb"] <= 0.55,
+              f"12e rank {r}: moments {z['moment_gb']} / {p['moment_gb']}")
+    return rec
+
+
 def mesh_phase(world, phase12, tmp, sz=P12):
     """Phase 12: the mesh on one card. Two gloo ranks share the card (NCCL
     refuses two ranks on one device), each a process of its own
@@ -3792,9 +4140,11 @@ def mesh_phase(world, phase12, tmp, sz=P12):
     one-process search reported: at random bf16 weights the order of the
     sums alone moves the search past that bar; TP at TOY_TP's geometry at
     tests/test_sharded_decode.py's bars; (c) the engine's docids at the
-    int4 bar, dense_topk's top-k sets equal apart from ties. Adds the
-    ranks' launches to ``phase12``. The wall times of two ranks sharing
-    one card say nothing of a run on two cards."""
+    int4 bar, dense_topk's top-k sets equal apart from ties; (d) and (e)
+    by check_mesh_serving and check_mesh_training ((e) reads phase 8's
+    trainset in ``tmp``). Adds the ranks' launches to
+    ``phase12``. The wall times of two ranks sharing one card say nothing
+    of a run on two cards."""
     import os
     import pickle
 
@@ -3802,7 +4152,7 @@ def mesh_phase(world, phase12, tmp, sz=P12):
     from ripor_tpu_torch.data.tokenizer import tokenize_queries
     from ripor_tpu_torch.decode.beam import make_beam_search_fn
     from ripor_tpu_torch.evaluation.retriever import dense_topk
-    from ripor_tpu_torch.models import RiporModel
+    from ripor_tpu_torch.models import RiporModel, init_params, ripor_base
     from ripor_tpu_torch.parallel import split_sums
     from ripor_tpu_torch.serve import RetrievalEngine, ServeConfig
     from ripor_tpu_torch.trie import succinct_tables, tables_to_torch
@@ -3824,11 +4174,18 @@ def mesh_phase(world, phase12, tmp, sz=P12):
     toy = toy_world()
     root = os.path.join(tmp, "mesh12")
     os.makedirs(root)
+    # (e): phase 8's batches and float32 params from the seed
+    train_cfg = sz["train_cfg"] or ripor_base(M=M, K=K)
+    train = train_batches(world, tmp)[:5]
+    sd32 = init_params(train_cfg, torch.Generator().manual_seed(SEED),
+                       device="cpu")
+    torch.save(sd32, os.path.join(root, "train_sd.pt"))
     with open(os.path.join(root, "world.pkl"), "wb") as f:
         pickle.dump({"sz": sz, "cfg": cfg, "trie": world["trie"],
                      "sd": {k: v.cpu() for k, v in world["sd"].items()},
                      "tok": world["tok"], "docids": world["docids"],
-                     "queries": world["queries"], "toy": toy}, f)
+                     "queries": world["queries"], "toy": toy,
+                     "train": train, "train_cfg": train_cfg}, f)
     logs = [open(os.path.join(root, f"rank{r}.log"), "wb") for r in (0, 1)]
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
@@ -3866,6 +4223,8 @@ def mesh_phase(world, phase12, tmp, sz=P12):
         del corpus
         if dev == "cuda":
             torch.cuda.empty_cache()
+        ref_train = train_reference(train_cfg, train[0], sd32, dev)
+        del sd32
         deadline = time.monotonic() + sz["timeout"]
         for p in procs:
             try:
@@ -3943,23 +4302,14 @@ def mesh_phase(world, phase12, tmp, sz=P12):
         check(all(np.array_equal(a, b) for a, b in zip(
             o["dense"], outs[0]["dense"])),
             f"12 dense: rank {r}'s top-k differs from rank 0's")
-    got = outs[0]["engine"]
-    check(len(got) == len(ref_engine), "12 engine: result count")
-    diff = []
-    for g_, w_ in zip(got, ref_engine):
-        check(g_[0][0] == w_[0][0], "12 engine: top docid")
-        docs_g, docs_w = {d for d, _ in g_}, {d for d, _ in w_}
-        diff.append(min(len(docs_g), len(docs_w)) - len(docs_g & docs_w))
-        sg, sw = np.array([v for _, v in g_]), np.array([v for _, v in w_])
-        n = min(len(sg), len(sw))
-        check(np.all(np.abs(sg[:n] - sw[:n]) <= 0.25 + 0.05 * np.abs(sw[:n])),
-              "12 engine: scores")
-    check(max(diff) <= 1, f"12 engine: docid sets {diff}")
+    diff = check_engine_bar("12 engine", outs[0]["engine"], ref_engine)
     ok, worst = topk_sets_agree(*outs[0]["dense"], *ref_dense)
     check(ok, f"12 dense: top-k sets (worst rel score diff {worst})")
     rec.update(engine_docid_set_diff=diff, dense_worst_rel_diff=worst,
-               dense_s=[o["dense_s"] for o in outs],
-               seconds=time.monotonic() - t_phase)
+               dense_s=[o["dense_s"] for o in outs])
+    rec["serving"] = check_mesh_serving(outs, ref_engine, cfg, phase12)
+    rec["training"] = check_mesh_training(outs, ref_train, root)
+    rec["seconds"] = time.monotonic() - t_phase
     print("mesh", json.dumps(rec))
 
 

@@ -182,6 +182,27 @@ def all_gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return torch.cat(parts, dim=dim).to(x.device)
 
 
+def broadcast_object(obj=None, group=None):
+    """``obj`` as the world's first rank holds it, on every rank of
+    ``group`` (None: the world; the group must hold rank 0): the SPMD
+    stand-in for the JAX package's single controller, which alone sees a
+    request. The object is pickled into a byte tensor on the host
+    (``dist.broadcast_object_list``), so a gloo group carries it; other
+    ranks pass anything (it is ignored). One process: ``obj``."""
+    if process_count() == 1:
+        return obj
+    box = [obj if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(box, src=0, group=group)
+    return box[0]
+
+
+def barrier(group=None) -> None:
+    """Wait for every rank of ``group`` (None: the world); one process:
+    nothing."""
+    if process_count() > 1:
+        dist.barrier(group=group)
+
+
 def process_count() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 

@@ -2,7 +2,8 @@
 
 Port of ripor_tpu/data/loader.py: ``PrefetchLoader`` and ``epoch_batches``
 are copies; ``device_prefetch`` moves batches with pinned host tensors and
-asynchronous copies where the JAX module uses jax.device_put.
+asynchronous copies where the JAX module uses jax.device_put, and takes a
+mesh for its ``sharding``.
 
 The reference keeps its accelerators fed with torch DataLoader worker
 processes (dataset/dataloader.py:42-185). Here a thread runs the
@@ -56,26 +57,36 @@ class PrefetchLoader:
 
 
 def device_prefetch(batches: Iterable[Dict], size: int = 2,
-                    device=None) -> Iterator[Dict]:
+                    device=None, sharding=None) -> Iterator[Dict]:
     """Move numpy batches to ``device`` (default "cuda", which raises
     without CUDA) ``size`` steps ahead of consumption, so the
     host-to-device copy of batch t+1 overlaps step t: each array is copied
     into a pinned host tensor and sent with ``non_blocking=True`` (tensors
-    already on the device pass through)."""
+    already on the device pass through).
+
+    ``sharding``: a mesh. Each batch (the same global batch on every
+    rank) lands as this rank's 'data' slice along its leading dim, a
+    parallel/sharding.py::DataSlice, which ``Trainer.run`` on that mesh
+    takes as it is (the JAX ``NamedSharding(mesh, P('data'))``; for
+    grad_accum > 1, whose batches split the micro-batch dim, pass global
+    batches instead)."""
     import torch
 
     from ripor_tpu_torch.decode.beam import resolve_device
+    from ripor_tpu_torch.parallel.sharding import DataSlice, shard_batch
     device = resolve_device(device)
     pin = device.type == "cuda"
 
     def put(b):
+        if sharding is not None:
+            b = shard_batch(b, sharding)
         out = {}
         for k, v in b.items():
             t = torch.as_tensor(v)
             if pin and t.device.type == "cpu":
                 t = t.pin_memory()
             out[k] = t.to(device, non_blocking=True)
-        return out
+        return DataSlice(out) if sharding is not None else out
 
     buf: "collections.deque" = collections.deque()
     it = iter(batches)

@@ -13,8 +13,14 @@ transposes it), so the split dimension flips against the JAX package's:
 the column-parallel q, k, v, wi, wi_0, wi_1 split dim 0, the row-parallel
 o and wo dim 1.
 
-The training-only helpers (``shard_params``, the ZeRO optimizer-state
-specs) go with data-parallel training (ROADMAP.md Queue 1).
+The training helpers: ``shard_params`` (this rank's slice by the
+training table), and the ZeRO optimizer-state rules
+(``opt_moment_spec``, ``opt_state_pspec_tree``, ``shard_opt_state``) that
+train/trainer.py's ``Trainer(mesh=, shard_opt_state=True)`` keeps its
+Adam moments by. A JAX array put on a mesh is one global array; here each
+rank holds its block: along every dim a spec splits over an axis of n
+ranks, rank i of that axis holds rows [size*i//n, size*(i+1)//n)
+(``span``), so a dim that does not divide the axis still splits.
 """
 from __future__ import annotations
 
@@ -84,6 +90,86 @@ def _local(x: torch.Tensor, spec: Spec, axis: str, n: int, i: int):
     return x.contiguous()
 
 
+def span(size: int, n: int, i: int) -> Tuple[int, int]:
+    """Rows [start, stop) of part i of n of a dim of ``size`` rows."""
+    return size * i // n, size * (i + 1) // n
+
+
+def block_index(shape, spec: Spec, mesh, coord=None) -> Tuple[slice, ...]:
+    """The slices of a tensor of ``shape`` that make the block held by
+    the rank at ``coord`` ({axis: index}; None: this rank) by ``spec``
+    (``span`` along each split dim)."""
+    out = []
+    for dim, axis in enumerate(spec):
+        if axis is None:
+            out.append(slice(None))
+        else:
+            i = mesh.get_local_rank(axis) if coord is None else coord[axis]
+            out.append(slice(*span(shape[dim], axis_size(mesh, axis), i)))
+    return tuple(out)
+
+
+def local_block(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """This rank's block of ``x`` by ``spec``, contiguous and in storage
+    of its own: a view would keep the whole of ``x`` alive (a ZeRO
+    moment would then hold as many bytes as the replicated one)."""
+    return x[block_index(x.shape, spec, mesh)].clone(
+        memory_format=torch.contiguous_format)
+
+
+def shard_params(params: Mapping[str, torch.Tensor], mesh
+                 ) -> Dict[str, torch.Tensor]:
+    """This rank's block of every param by :func:`param_partition_spec`
+    (the training table: the token embedding's vocab dim splits). The
+    Trainer keeps params whole, as the JAX Trainer does; this is the JAX
+    ``shard_params`` for a caller that holds TP blocks."""
+    return {k: local_block(v, param_partition_spec(k, v), mesh)
+            for k, v in params.items()}
+
+
+def opt_moment_spec(param_spec: Spec, leaf) -> Spec:
+    """ZeRO-style spec for one optimizer moment: keep the param's TP axes
+    and split the largest remaining free dim over 'data', unless it is
+    smaller than 8 (replication is cheaper), as the JAX rule does. The
+    port's Linear weight is the transpose of the flax kernel, so the
+    split dim flips with it; a tie between free dims (none in RiporModel:
+    every 2-D Linear weight has a TP axis) takes the first, as JAX does."""
+    ndim = getattr(leaf, "ndim", 0)
+    if ndim == 0:
+        return ()
+    spec = (list(param_spec) + [None] * ndim)[:ndim]
+    free = [i for i, a in enumerate(spec) if a is None]
+    if not free:
+        return tuple(spec)
+    largest = max(free, key=lambda i: leaf.shape[i])
+    if leaf.shape[largest] < 8:
+        return tuple(spec)
+    spec[largest] = DATA_AXIS
+    return tuple(spec)
+
+
+def opt_state_pspec_tree(opt_state: Mapping, params: Mapping[str, torch.Tensor]
+                         ) -> Dict:
+    """Specs of an ``AdamW.init`` state ({count, mu, nu} by param name):
+    mu and nu take :func:`opt_moment_spec` of their param's spec, the
+    step count replicates."""
+    specs = params_pspec_tree(params)
+    return {k: ({n: opt_moment_spec(specs[n], v) for n, v in tree.items()}
+                if isinstance(tree, Mapping) else ())
+            for k, tree in opt_state.items()}
+
+
+def shard_opt_state(opt_state: Mapping, params: Mapping[str, torch.Tensor],
+                    mesh) -> Dict:
+    """This rank's ZeRO blocks of an optimizer state whose moments are
+    whole, by :func:`opt_state_pspec_tree`."""
+    specs = opt_state_pspec_tree(opt_state, params)
+    return {k: ({n: local_block(v, specs[k][n], mesh)
+                 for n, v in tree.items()}
+                if isinstance(tree, Mapping) else tree)
+            for k, tree in opt_state.items()}
+
+
 def shard_decode_params(params: Mapping[str, torch.Tensor], mesh
                         ) -> Dict[str, torch.Tensor]:
     """This rank's model-coordinate slice of an UNSHARDED state_dict, by
@@ -99,12 +185,23 @@ def batch_sharding(mesh) -> Tuple:
     return shard(mesh, DATA_AXIS)
 
 
-def shard_batch(batch, mesh):
+class DataSlice(dict):
+    """A batch that is already this rank's 'data' slice (what
+    :func:`shard_batch` returns for a mapping): sharding it again, or
+    handing it to ``Trainer.run`` on a mesh, leaves it as it is, as a JAX
+    array already on its sharding is left."""
+
+
+def shard_batch(batch, mesh, dim: int = 0):
     """This rank's data slice of every array of ``batch`` (a mapping,
     list or tuple of numpy arrays or tensors, nested) along its leading
-    (batch) dim, which must divide the 'data' axis. Every rank passes the
+    (batch) dim, which must divide the 'data' axis (``dim`` 1: the
+    micro-batch dim of a [accum, micro, ...] batch). Every rank passes the
     same global batch (the reference's DistributedSampler contract,
-    t5_pretrainer/main.py:116-124, with the split made here)."""
+    t5_pretrainer/main.py:116-124, with the split made here). A mapping
+    comes back as a :class:`DataSlice`; a DataSlice is returned as it is."""
+    if isinstance(batch, DataSlice):
+        return batch
     n, i = axis_size(mesh, DATA_AXIS), mesh.get_local_rank(DATA_AXIS)
 
     def put(x):
@@ -112,9 +209,11 @@ def shard_batch(batch, mesh):
             return {k: put(v) for k, v in x.items()}
         if isinstance(x, (list, tuple)):
             return type(x)(put(v) for v in x)
-        b = x.shape[0]
+        b = x.shape[dim]
         if b % n:
             raise ValueError(f"batch {b} does not divide the 'data' axis "
                              f"({n})")
-        return x[i * (b // n):(i + 1) * (b // n)]
-    return put(batch)
+        return x[(slice(None),) * dim + (slice(i * (b // n),
+                                                (i + 1) * (b // n)),)]
+    out = put(batch)
+    return DataSlice(out) if isinstance(batch, Mapping) else out

@@ -27,6 +27,7 @@ from typing import Dict, Iterable, Optional, Sequence
 import numpy as np
 import torch
 
+from ripor_tpu_torch.core.mesh import barrier, is_first_process
 from ripor_tpu_torch.data.datasets import (Collection, load_docid_to_smtid,
                                            save_docid_to_smtid)
 from ripor_tpu_torch.data.tokenizer import (TextTokenizer, UnigramTokenizer,
@@ -187,7 +188,9 @@ def stage_train(ws: Workspace, phase_name: str, model, params,
     package's Orbax tree) is restored instead. ``model``: the model to
     train, on its device — a RiporModel (``cfg`` its config) or a teacher
     or baseline model (``cfg`` None for the BERT families, as the JAX
-    package passes it)."""
+    package passes it). ``mesh``: train data-parallel (every rank calls
+    stage_train with the same params and batches; the first rank writes
+    the checkpoint)."""
     ckpt_dir = ws.path(f"checkpoints/{phase_name}")
     if has_params(ckpt_dir):
         ws.log(f"{phase_name}: restoring existing checkpoint")
@@ -199,7 +202,10 @@ def stage_train(ws: Workspace, phase_name: str, model, params,
                                                  f"loss={m['loss']:.4f}"))
     state, _ = trainer.run(batches, rng_seed)
     params = {k: v.detach().cpu() for k, v in state.params.items()}
-    save_params(ckpt_dir, params, cfg)
+    if mesh is None or is_first_process():
+        save_params(ckpt_dir, params, cfg)
+    if mesh is not None:
+        barrier()
     return params
 
 

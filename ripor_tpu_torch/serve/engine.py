@@ -11,9 +11,17 @@ waits at most ``max_delay_ms`` for co-riders, then dispatches.
 The decode is asynchronous on the card (the beam loop issues no host
 sync), so the batcher dispatches batch N+1 while a completion thread
 waits for batch N's results and expands them to docids.
+
+On a mesh of more than one rank the engine is SPMD, and the first rank
+plays the JAX package's single controller: every rank calls ``start``
+and ``stop``; only the first rank takes ``submit`` (and so HTTP). Its
+batcher broadcasts each batch's texts to the other ranks, whose follower
+thread runs the same decode, so every collective of the search runs on
+every rank in the same order. One thread a rank issues collectives.
 """
 from __future__ import annotations
 
+import datetime
 import logging
 import os
 import queue
@@ -71,6 +79,12 @@ class _Request:
     t_submit: float = field(default_factory=time.monotonic)
 
 
+_STOP = None    # the first rank's last broadcast: the followers return
+# the batches' group waits this long for the next batch: a follower of an
+# idle server waits on, and a rank that dies fails the others at once
+CTL_TIMEOUT = datetime.timedelta(days=365)
+
+
 class BaseEngine:
     """Warm-shape microbatching over an abstract per-batch device call.
 
@@ -84,7 +98,14 @@ class BaseEngine:
     N, the batcher thread collects, tokenizes and dispatches batch N+1 and
     a completion thread finishes batch N. In-flight depth is bounded at 2
     so queueing latency stays one device batch.
+
+    A subclass that serves a mesh of more than one rank sets ``_ctl``, the
+    gloo group the first rank broadcasts each batch over, and on the other
+    ranks ``_follows`` (module docstring).
     """
+
+    _ctl = None
+    _follows = False
 
     def __init__(self, serve_cfg: ServeConfig, warm: bool = True):
         self.scfg = serve_cfg
@@ -108,6 +129,16 @@ class BaseEngine:
         # before finishing it, so the queue above cannot serve as this
         # signal); the batcher coalesces past max_delay_ms while it is > 0
         self._inflight_n = 0
+        # the exception that ended the batcher or the follower on a mesh;
+        # stop() re-raises it
+        self._error: Optional[Exception] = None
+        # the card the engine was built on ("cuda": the current one)
+        dev = getattr(self, "_device", None)
+        self._cuda_index = None
+        if dev is not None and dev.type == "cuda":
+            import torch
+            self._cuda_index = (dev.index if dev.index is not None
+                                else torch.cuda.current_device())
         if warm:
             self.warmup()
 
@@ -150,10 +181,32 @@ class BaseEngine:
 
     # -- async microbatching path -------------------------------------------
 
+    @property
+    def follows(self) -> bool:
+        """Whether this rank follows the first rank's batches (a mesh of
+        more than one rank, any rank but the first)."""
+        return self._follows
+
+    def _bind_device(self):
+        """Make the engine's card current in this thread (a thread starts
+        on card 0)."""
+        if self._cuda_index is not None:
+            import torch
+            torch.cuda.set_device(self._cuda_index)
+
     def start(self):
         """Start the batcher + completion threads (idempotent; restartable
-        after stop())."""
+        after stop()); on a follower rank, the follower thread."""
+        if self._follows:
+            if self._thread is None or not self._thread.is_alive():
+                self._error = None
+                self._thread = threading.Thread(target=self._follow_loop,
+                                                name="ripor-follower",
+                                                daemon=True)
+                self._thread.start()
+            return
         if self._thread is None or not self._thread.is_alive():
+            self._error = None
             self._stop.clear()
             # fresh in-flight queue: after a clean stop it may hold a stale
             # None sentinel, which would end the new completer at once
@@ -167,13 +220,32 @@ class BaseEngine:
             self._thread.start()
             self._completer.start()
 
+    def follow(self):
+        """On a follower rank: start, and return when the first rank has
+        stopped the engine (re-raising the follower's exception)."""
+        self.start()
+        self._thread.join()
+        self.stop()
+
     def stop(self):
         """Stop the batcher and FAIL any still-queued requests (a future
         that never resolves deadlocks its client). Waits for the batcher to
         exit, then for the completion thread to drain every in-flight
-        batch, before draining the queue."""
+        batch, before draining the queue. On a mesh the first rank's
+        batcher tells the followers to return; a follower's stop() waits
+        (up to ``stop_join_timeout_s``) for that. The exception that ended
+        the batcher or the follower, if one did, is raised here."""
         self._stop.set()
         timeout = self.scfg.stop_join_timeout_s
+        if self._follows:
+            if self._thread is not None:
+                self._thread.join(timeout=timeout)
+                if self._thread.is_alive():
+                    raise RuntimeError(
+                        f"the first rank did not stop the engine within "
+                        f"{timeout:.0f} s; this rank's follower still waits")
+            self._raise_error()
+            return
         wedged = False
         if self._thread is not None:
             self._thread.join(timeout=timeout)
@@ -198,15 +270,73 @@ class BaseEngine:
             if not req.future.done():
                 req.future.set_exception(
                     RuntimeError("engine stopped before request was served"))
+        self._raise_error()
+
+    def _raise_error(self):
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
 
     def submit(self, text: str) -> Future:
         """Enqueue one query; the Future resolves to its top-k list.
-        Requires start(); concurrent submitters share device batches."""
+        Requires start(); concurrent submitters share device batches. On a
+        mesh only the first rank takes requests."""
+        if self._follows:
+            raise ValueError(
+                "submit is taken by the first rank of the mesh only; this "
+                "rank follows its batches (call start() and stop() here)")
         req = _Request(text, Future())
-        self._q.put(req)
+        if self._error is not None:
+            req.future.set_exception(self._error)
+        else:
+            self._q.put(req)
         return req.future
 
+    def _broadcast(self, texts):
+        from ripor_tpu_torch.core.mesh import broadcast_object
+        broadcast_object(texts, self._ctl)
+
+    def _follow_loop(self):
+        """A follower rank: run each batch the first rank broadcasts, in
+        its order, until the stop sentinel."""
+        from ripor_tpu_torch.core.mesh import broadcast_object
+        try:
+            self._bind_device()
+            while True:
+                texts = broadcast_object(None, self._ctl)
+                if texts is _STOP:
+                    return
+                self._decode(texts)
+        except Exception as e:          # re-raised by stop()
+            self._error = e
+
     def _batch_loop(self):
+        """The batcher thread: ``_batches`` until stop(); on a mesh its
+        exception fails the queued requests and is kept for stop(), and
+        its last broadcast ends the followers."""
+        try:
+            self._bind_device()
+            self._batches()
+        except Exception as e:          # a mesh's ranks are out of step
+            self._error = e
+            self._fail_queued(e)
+        finally:
+            if self._ctl is not None:
+                try:
+                    self._broadcast(_STOP)
+                except Exception as e:
+                    self._error = self._error or e
+
+    def _fail_queued(self, err):
+        while True:
+            try:
+                req = self._q.get_nowait()
+            except queue.Empty:
+                return
+            if not req.future.done():
+                req.future.set_exception(err)
+
+    def _batches(self):
         """Collect + tokenize + dispatch batches; never waits for device
         results. Coalescing is load-aware: ``max_delay_ms`` bounds the added
         latency only while the device is idle; while a batch is in flight,
@@ -232,12 +362,16 @@ class BaseEngine:
                 except queue.Empty:
                     pass
             rung = next(b for b in self._sizes if b >= len(batch))
+            texts = [r.text for r in batch] + [""] * (rung - len(batch))
             try:
-                handle = self._dispatch([r.text for r in batch]
-                                        + [""] * (rung - len(batch)))
+                if self._ctl is not None:
+                    self._broadcast(texts)
+                handle = self._dispatch(texts)
             except Exception as e:      # surface device errors per request
                 for r in batch:
                     r.future.set_exception(e)
+                if self._ctl is not None:
+                    raise               # the ranks' collectives disagree
                 continue
             with self._lock:
                 self._inflight_n += 1
@@ -308,9 +442,10 @@ class RetrievalEngine(BaseEngine):
     ``mesh``: queries split over the mesh's 'data' axis
     (decode/beam.py::make_sharded_beam_search_fn), so every rung of
     ``batch_sizes`` must divide it. The engine is then SPMD: every rank
-    builds it and calls ``retrieve_batch`` with the same texts. ``submit``
-    (and so HTTP) over more than one rank is not ported: rank 0 would
-    have to drive the other ranks' searches."""
+    builds it, and either every rank calls ``retrieve_batch`` with the
+    same texts, or every rank calls ``start()``/``stop()`` and the first
+    rank alone ``submit`` (or serve/http.py::serve_http), whose batches
+    the other ranks follow (module docstring)."""
 
     def __init__(self, cfg, params, tok, trie, docids: Sequence[str],
                  serve_cfg: ServeConfig = ServeConfig(), warm: bool = True,
@@ -357,22 +492,15 @@ class RetrievalEngine(BaseEngine):
                                  device=self._device)
         self._model.load_state_dict(params)
         self._tables = tables_to_torch(succinct_tables(trie), self._device)
+        if mesh is not None and mesh.size() > 1:
+            import torch.distributed as dist
+
+            from ripor_tpu_torch.core.mesh import is_first_process
+            # the batches' own group: host objects, apart from the search's
+            # collectives (every rank makes it, in the same order)
+            self._ctl = dist.new_group(backend="gloo", timeout=CTL_TIMEOUT)
+            self._follows = not is_first_process()
         super().__init__(serve_cfg, warm=warm)
-
-    def _one_rank(self):
-        if self._mesh is not None and self._mesh.size() > 1:
-            raise NotImplementedError(
-                "submit/HTTP over a mesh of more than one rank is not ported "
-                "(ROADMAP.md Queue 1 item 4: rank 0 would drive the other "
-                "ranks); every rank calls retrieve_batch instead")
-
-    def start(self):
-        self._one_rank()
-        super().start()
-
-    def submit(self, text: str) -> Future:
-        self._one_rank()
-        return super().submit(text)
 
     def _dispatch(self, texts: Sequence[str]):
         """Tokenize + launch one decode; returns the device tensors (the

@@ -21,6 +21,7 @@ import os
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
 from urllib.parse import parse_qs, urlparse
 
 from ripor_tpu_torch.serve.engine import RetrievalEngine
@@ -132,11 +133,23 @@ def _make_handler(engine: RetrievalEngine):
 
 
 def serve_http(engine: RetrievalEngine, host: str = "127.0.0.1",
-               port: int = 8600, block: bool = True) -> ThreadingHTTPServer:
+               port: int = 8600, block: bool = True
+               ) -> Optional[ThreadingHTTPServer]:
     """Start the engine's batcher + an HTTP server. With block=False the
     server runs on a daemon thread (port via server.server_address[1] —
     pass port=0 for an ephemeral one) and the caller owns shutdown:
-    server.shutdown(); server.server_close(); engine.stop()."""
+    server.shutdown(); server.server_close(); engine.stop().
+
+    Every rank of a mesh engine calls it: the first rank serves, and the
+    others follow its batches (serve/engine.py) and return None — with
+    block=True once the first rank has stopped the engine, with
+    block=False at once (the caller then calls engine.stop())."""
+    if engine.follows:
+        if block:
+            engine.follow()
+        else:
+            engine.start()
+        return None
     engine.start()
     server = ThreadingHTTPServer((host, port), _make_handler(engine))
     if block:

@@ -26,7 +26,8 @@ from ripor_tpu_torch.parallel.sharding import (decode_params_pspec_tree,
                                                params_pspec_tree)
 from ripor_tpu_torch.serve import RetrievalEngine, ServeConfig
 from ripor_tpu_torch.trie import build_trie
-from torch_parity import port_state_dict, seeded_params
+from torch_parity import (port_name_and_flip, port_state_dict,
+                          seeded_params)
 
 QUERIES = ["what is jax", "tpu systolic array", "residual quantization"]
 ENGINE = dict(num_beams=5, topk=7, max_length=6, max_delay_ms=50.0,
@@ -80,20 +81,6 @@ def test_mesh_spec_resolve_and_its_errors():
         assert str(got.value) == str(want.value)
 
 
-def _port_name_and_flip(path):
-    """JAX tree path -> (port state_dict name, whether the port's tensor is
-    the transpose): models/convert.py's mapping."""
-    parts = []
-    for p in path:
-        k = p.key
-        parts += ["layers", k[len("layer_"):]] if k.startswith("layer_") \
-            else [k]
-    flip = parts[-1] == "kernel"
-    if parts[-1] in ("kernel", "embedding"):
-        parts[-1] = "weight"
-    return ".".join(parts), flip
-
-
 @pytest.mark.parametrize("table", ["train", "decode"])
 def test_spec_tables_match_jax(table):
     """Every param of ripor_small: the port's spec is the JAX package's,
@@ -108,7 +95,7 @@ def test_spec_tables_match_jax(table):
     for path, spec in jax.tree_util.tree_flatten_with_path(
             jax_fn(params), is_leaf=lambda x: isinstance(
                 x, jax.sharding.PartitionSpec))[0]:
-        name, flip = _port_name_and_flip(path)
+        name, flip = port_name_and_flip(path)
         leaf = params
         for p in path:
             leaf = leaf[p.key]
@@ -182,7 +169,10 @@ def test_mesh_engine_matches_single_device(world):
             np.testing.assert_allclose([s for _, s in g], [s for _, s in w],
                                        rtol=1e-4)
         assert "data" in out["rung_error"]
-        assert "Queue 1 item 4" in out["submit_error"]
+    # rank 0 queues a request (failed by stop()); the other ranks refuse
+    assert got[0]["submit"] == "Future"
+    for out in got[1:]:
+        assert "first rank" in out["submit_error"]
 
 
 def test_dense_topk_on_mesh(world):

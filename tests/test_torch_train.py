@@ -12,6 +12,7 @@ model methods atol 1e-5 (and rtol 1e-6: logits reach ~20); loss values and every
 params after optimizer steps, the lr and anchor_drift rtol 1e-5 /
 atol 1e-6.
 """
+import dataclasses
 import json
 
 import jax
@@ -588,10 +589,21 @@ def test_step_timer_mfu_needs_a_known_card():
     assert peak_flops("some other card", torch.float32) is None
 
 
-def test_training_refusals(world):
+def test_training_refusals(world, trajectory):
+    """What the trainer still refuses: L2-SP without an anchor, as the JAX
+    Trainer does. ``shard_opt_state`` without a mesh is not refused: as in
+    the JAX package it is read only with a mesh (tests/
+    test_torch_mesh_train.py), and one process trains as without it."""
     cfg, _, params, _ = world
     sd = port_state_dict(params, cfg)
-    for kw, tkw in (({"mesh": object()}, {}), ({}, {"shard_opt_state": True})):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            Trainer(RiporModel(cfg, device="cpu"), TrainConfig(**tkw), sd,
-                    **kw)
+    with pytest.raises(ValueError, match="anchor_params"):
+        Trainer(RiporModel(cfg, device="cpu"), TrainConfig(l2sp_rate=0.1),
+                sd)
+    out = []
+    for zero in (False, True):
+        model = RiporModel(cfg, device="cpu")
+        tcfg = dataclasses.replace(trajectory["pcfg"], shard_opt_state=zero)
+        Trainer(model, tcfg, sd).run(trajectory["batches"][:2], seed=0)
+        out.append(model.state_dict())
+    for k, v in out[0].items():
+        assert torch.equal(v, out[1][k]), k

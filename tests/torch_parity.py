@@ -73,3 +73,17 @@ def seeded_params(cfg, seed):
     from ripor_tpu_torch.models import init_params
     return flax_tree(init_params(cfg, torch.Generator().manual_seed(seed),
                                  device="cpu"))
+
+
+def port_name_and_flip(path):
+    """JAX tree path -> (port state_dict name, whether the port's tensor is
+    the transpose): models/convert.py's mapping."""
+    parts = []
+    for p in path:
+        k = p.key
+        parts += ["layers", k[len("layer_"):]] if k.startswith("layer_") \
+            else [k]
+    flip = parts[-1] == "kernel"
+    if parts[-1] in ("kernel", "embedding"):
+        parts[-1] = "weight"
+    return ".".join(parts), flip
