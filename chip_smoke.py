@@ -13,7 +13,12 @@ nonzero and no result line is printed:
      shapes its path gives it (t5-base widths, B=8, N=1000, L=12, Mc in
      {8, 32}; the staged kernels at every segment size, Mc in {8, 16, 24,
      32}, with their launch plans): K1-K3 with exact bf16, int8 and int4
-     rows; K4 with int4, int8 (exact and pre-quantized kvg rows) and bf16
+     rows; the megarow dataflows' bodies (dataflow_checks): K1' (exact
+     rows quantized on insert) into int8 and int4 caches at Mc 8 and 32,
+     t = 0 and Mc/2, K1'' (kvg through src) in its verbatim int8,
+     quantize-on-insert and exact bf16 forms, bit-equal, and K2'
+     (mxu_math) on int8 and int4 rows at every segment size; K4 with
+     int4, int8 (exact and pre-quantized kvg rows) and bf16
      rows; K5 in bf16 (and f32 at Mc=32) and K6 in bf16; K8 in bf16 and
      f32 at two slots t; K7 in bf16, int8 and on narrow blocks; then the
      slabs no stage holds (slot chunks, one layer): K2 and K4 at t5-3b
@@ -35,8 +40,9 @@ nonzero and no result line is printed:
   3. agreement on a small input: the port's beam search through the
      kernels on the card against its plain path on the CPU (the path the
      CPU tests hold against the JAX package), on the megarow and deferred
-     paths (exact, int8, int4 caches), the non-deferred path and the
-     write-then-attend path;
+     paths (exact, int8, int4 caches; on the megarow path also the
+     dataflows qfuse=False, kvg_quant_xla, fused_kvg and mxu_math), the
+     non-deferred path and the write-then-attend path;
   4. the main path: RetrievalEngine at ripor_base(M=32, K=256) with random
      bf16 weights from a seed, a 100,000-doc random-code corpus, beam =
      topk = 1000, on the megarow path with int4, exact bf16 and int8
@@ -51,7 +57,12 @@ nonzero and no result line is printed:
      B=8 search each, after one warm-up search, with phase 4's checks and
      launch counters zeroed just before and read just after; two more
      searches for the time (median of three), and the same profile as
-     phase 5;
+     phase 5. 6b: the megarow dataflows at phase 4's int4 search
+     (qfuse=False: K1' 32, K2 384, K3 31; fused_kvg=True, alone and with
+     qfuse=False: K1'' 32, K2 384; mxu_math=True: K1 32, K2' 384, K3 31),
+     one B=8 search each after a warm-up, with phase 4's checks; K1' and
+     K1'' equal phase 4's search bit for bit, K2' reports the codes it
+     moves;
   7. the main path through its entry points, at phase 4's model and
      corpus: a workspace written by the port's own functions (save_params,
      docid_to_smtid.json, a WordTokenizer, 16 queries); the ``retrieve``
@@ -161,8 +172,9 @@ nonzero and no result line is printed:
      memory a rank. (Two ranks time-share the card and their collectives
      go through host copies: the times say nothing of two cards.)
 
-Prints the card's name and power limit (nvidia-smi), per-phase lines, then
-a ``{"kernels": [...]}`` line and, last, the contract line
+Prints the card's name and power limit (nvidia-smi), per-phase lines (and
+``phase_s``, the seconds of each part of phases 2 to 6b), then a
+``{"kernels": [...]}`` line and, last, the contract line
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits nonzero
 without one, and outside a checkout of the repository.
 """
@@ -369,10 +381,174 @@ def print_checks(recs):
         print("kernel_check", json.dumps({"kernel": name, "case": tg, **r}))
 
 
+def reorder_body_case(results, tag, cache, kvg, src, t, fused, timed):
+    """One K1 body (K1', K1'') at [B, N, L, Mc, RW] against its plain
+    version, bit-equal; ``timed``: its times and bound too (reading each
+    source slab and kvg row the search needs once, writing every slab)."""
+    import torch
+    from ripor_tpu_torch.ops import reorder_cache_all, reorder_cache_all_plain
+    from ripor_tpu_torch.ops.megarow import reorder_body
+    name = reorder_body(kvg.dtype != cache.dtype, fused)
+    dst = torch.empty_like(cache)
+
+    def run(fn, out):
+        return fn(kvg, cache, out, src, t, H, fused_kvg=fused)
+    out = run(reorder_cache_all, dst)
+    ref = run(reorder_cache_all_plain, torch.empty_like(cache))
+    torch.cuda.synchronize()
+    check(torch.equal(out, ref), f"{name} {tag}")
+    del ref
+    rec = dict(max_abs_err=0.0, library_ms=None, t=t)
+    if timed:
+        uniq = unique_sources(src)
+        slab = L * cache.shape[3] * cache.shape[4] * cache.element_size()
+        krow = kvg.shape[2] * kvg.element_size()
+        rec.update(ms=cuda_ms(lambda: run(reorder_cache_all, dst), 5),
+                   plain_ms=cuda_ms(lambda: run(reorder_cache_all_plain,
+                                                dst), 3))
+        rec["bound_ms"], rec["bound_by"] = bound(
+            uniq * slab + B * N * slab + (uniq if fused else B * N) * krow
+            + nbytes(src))
+    results.append((name, tag, rec))
+
+
+def dataflow_checks(results, g):
+    """Phase 2, the megarow dataflows' bodies at the main path's shapes,
+    against their plain versions: K1' (exact bf16 rows quantized on
+    insert into int8 and int4 caches) at Mc 8 and 32, at t = 0 and a
+    middle t; K1'' (kvg read through src) on int4 rows with QFUSE's int8
+    rows, exact rows quantized into int4 and int8 caches, and exact bf16
+    rows into a bf16 cache, at Mc = 32; all bit-equal. K2' (mxu_math) on
+    int8 and int4 rows at every segment size, at the staged kernels' bar
+    (2e-2), its QFUSE rows bit-equal; and with f32 q at Mc = 32, where the
+    bf16 output no longer hides its exact p*v products (mxu_exact_case)."""
+    import torch
+    n_before = len(results)
+    for quant in ("int4", "int8"):
+        for Mc in (SEGMENTS[0], SEGMENTS[-1]):
+            cache = random_rows(quant, (B, N, L, Mc), g)
+            for t in (0, Mc // 2):
+                src = torch.randint(0, N, (B, N), generator=g, device="cuda",
+                                    dtype=torch.int32)
+                kvg = random_rows(None, (B, N, L), g).reshape(B, N, -1)
+                reorder_body_case(results, f"{quant} Mc={Mc} t={t}", cache,
+                                  kvg, src, t, False, t > 0)
+            del cache
+            torch.cuda.empty_cache()
+    Mc, t = SEGMENTS[-1], SEGMENTS[-1] // 2
+    for form, quant in (("int4 rows", "int4"), ("int4 quantized", "int4"),
+                        ("int8 quantized", "int8"), ("bf16 exact", None)):
+        cache = random_rows(quant, (B, N, L, Mc), g)
+        src = torch.randint(0, N, (B, N), generator=g, device="cuda",
+                            dtype=torch.int32)
+        kvg = random_rows(quant if form.endswith("rows") else None,
+                          (B, N, L), g).reshape(B, N, -1)
+        reorder_body_case(results, f"{form} Mc={Mc}", cache, kvg, src, t,
+                          True, True)
+        del cache, kvg
+        torch.cuda.empty_cache()
+    for Mc in SEGMENTS:
+        for quant in ("int4", "int8"):
+            cache = random_rows(quant, (B, N, L, Mc), g)
+            step_attention_seq_case(results, f"{quant} Mc={Mc}", quant,
+                                    cache, Mc, Mc - 1, g, mxu=True)
+            del cache
+            torch.cuda.empty_cache()
+    for quant in ("int4", "int8"):
+        mxu_exact_case(results, quant, SEGMENTS[-1], g)
+    print_checks(results[n_before:])
+
+
+def mxu_exact_case(results, quant, Mc, g, layer=5):
+    """K2' with f32 q, kv_new and output on an int8/int4 [B, N, L, Mc, RW]
+    cache at t = Mc - 1, against the exact-product plain version (plain
+    K2', and plain K2, whose p*v products are rounded to bf16).
+
+    Gates: K2''s mean abs error is under a tenth of the rounded plain
+    version's mean gap to the exact one, and the same gate refuses the
+    K2 kernel launched on these inputs, so a K2' that rounds its products
+    as K2 does fails here. Both versions round each probability (times
+    its V scale) to bf16, so a last-bit difference in a score flips that
+    rounding where it lies on a midpoint: a head-row whose error exceeds a
+    tenth of the rounded gap's max must be one bf16 step of one
+    probability times that slot's V row, up to a tenth of that max
+    (``pv_flips``)."""
+    import torch
+    from ripor_tpu_torch.ops import step_attention_seq, step_attention_seq_plain
+    cache = random_rows(quant, (B, N, L, Mc), g)
+    q, kv_new, bias_hist, bias_new = attention_inputs(Mc, Mc - 1, g,
+                                                      dtype=torch.float32)
+    args = (q, kv_new, cache, layer, bias_hist, bias_new, H)
+    got = step_attention_seq(*args, mxu_math=True)
+    k2 = step_attention_seq(*args)
+    exact = step_attention_seq_plain(*args, mxu_math=True)
+    rounded = step_attention_seq_plain(*args)
+    torch.cuda.synchronize()
+    err, gap = (got - exact).abs(), (rounded - exact).abs()
+    k2_err = (k2 - exact).abs().mean().item()
+    rec = dict(max_abs_err=err.max().item(), mean_abs_err=err.mean().item(),
+               rounded_gap_max=gap.max().item(),
+               rounded_gap_mean=gap.mean().item(), k2_mean_abs_err=k2_err,
+               library_ms=None)
+    tag = f"{quant} f32 q Mc={Mc}"
+    check(rec["mean_abs_err"] * 10 < rec["rounded_gap_mean"],
+          f"step_attention_seq_mxu {tag}: mean abs err "
+          f"{rec['mean_abs_err']} not under a tenth of the rounded "
+          f"products' mean gap {rec['rounded_gap_mean']}")
+    check(not k2_err * 10 < rec["rounded_gap_mean"],
+          f"step_attention_seq_mxu {tag}: the gate does not refuse K2's "
+          f"rounded products (mean abs err {k2_err})")
+    rec["flips"], rec["unexplained"] = pv_flips(
+        got - exact, args, rec["rounded_gap_max"] / 10)
+    check(rec["unexplained"] == 0,
+          f"step_attention_seq_mxu {tag}: {rec['unexplained']} head-rows "
+          f"off by more than one probability's bf16 step")
+    results.append(("step_attention_seq_mxu", tag, rec))
+    del cache, got, k2, exact, rounded, err, gap
+    torch.cuda.empty_cache()
+
+
+def pv_flips(diff, args, tol):
+    """Head-rows of an attention output difference ``diff`` [B, N, F]
+    whose max exceeds ``tol``, and how many of them are not one bf16 step
+    of one probability p_j (times its V scale, as attend_plain rounds it)
+    times slot j's V row, up to ``tol``."""
+    import torch
+    from ripor_tpu_torch.ops.attend_reorder import cache_quant, decode_rows
+    q, kv_new, cache, layer, bias_hist, bias_new, Hh = args
+    Bq, Nq, Fq = q.shape
+    D, Mc = Fq // Hh, cache.shape[3]
+    k, v, ek, ev = decode_rows(cache[:, :, layer], Fq, Hh,
+                               cache_quant(cache, Fq))
+    qb = q.to(torch.bfloat16)
+    s = (k * qb[:, :, None]).float().reshape(Bq, Nq, Mc, Hh, D).sum(-1)
+    s_new = (kv_new[..., :Fq].to(torch.bfloat16) * qb).float().reshape(
+        Bq, Nq, Hh, D).sum(-1) + bias_new
+    probs = torch.softmax(torch.cat([s * ek + bias_hist, s_new[:, :, None]],
+                                    2), 2)
+    ps = torch.cat([probs[:, :, :Mc] * ev, probs[:, :, Mc:]], 2).double()
+    diff = diff.reshape(Bq, Nq, Hh, D).double()
+    rows = (diff.abs().amax(-1) > tol).nonzero().tolist()
+    unexplained = 0
+    for b, n, h in rows:
+        V = torch.cat([v[b, n, :, h * D:(h + 1) * D].double(),
+                       kv_new[b, n, None, Fq + h * D:Fq + (h + 1) * D]
+                       .double()])                    # [Mc + 1, D]
+        e = diff[b, n, h]
+        c = (V @ e) / (V * V).sum(1).clamp_min(1e-30)
+        j = int((e - c[:, None] * V).abs().amax(1).argmin())
+        ulp = 2.0 ** (torch.floor(torch.log2(ps[b, n, j, h].abs())) - 7)
+        if not (abs(c[j]) <= 1.001 * ulp
+                and (e - c[j] * V[j]).abs().max() <= tol):
+            unexplained += 1
+    return len(rows), unexplained
+
+
 def step_attention_seq_case(results, tag, quant, cache, Mc, t, g, layer=5,
-                            width=(F, H), tol=2e-2):
-    """K2 at ``layer`` of a [B, N, L, Mc, RW] cache against its plain
-    version, with the QFUSE rows for quantized caches (bit-equal)."""
+                            width=(F, H), tol=2e-2, mxu=False):
+    """K2 (with ``mxu``, K2') at ``layer`` of a [B, N, L, Mc, RW] cache
+    against its plain version, with the QFUSE rows for quantized caches
+    (bit-equal)."""
     import torch
     from ripor_tpu_torch.ops import (step_attention_seq,
                                      step_attention_seq_plain)
@@ -382,17 +558,17 @@ def step_attention_seq_case(results, tag, quant, cache, Mc, t, g, layer=5,
     q, kv_new, bias_hist, bias_new = attention_inputs(
         Mc, t, g, width, torch.float32 if cache.dtype == torch.float32
         else None)
-    args = (q, kv_new, cache, layer, bias_hist, bias_new, H, quant)
+    args = (q, kv_new, cache, layer, bias_hist, bias_new, H, quant, mxu)
+    name = "step_attention_seq_mxu" if mxu else "step_attention_seq"
     got = step_attention_seq(*args)
     want = step_attention_seq_plain(*args)
     torch.cuda.synchronize()
     if quant:
         (got, got_q), (want, want_q) = got, want
-        check(torch.equal(got_q, want_q),
-              f"step_attention_seq emit_quant rows {tag}")
+        check(torch.equal(got_q, want_q), f"{name} emit_quant rows {tag}")
     err = (got.float() - want.float()).abs().max().item()
     check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
-          f"step_attention_seq {tag}: max abs err {err}")
+          f"{name} {tag}: max abs err {err}")
     plan = stage_plan(quant, cache.element_size(), q.element_size(), Mc, F, H)
     rec = dict(ms=cuda_ms(lambda: step_attention_seq(*args), 20),
                plain_ms=cuda_ms(lambda: step_attention_seq_plain(*args), 3),
@@ -402,7 +578,7 @@ def step_attention_seq_case(results, tag, quant, cache, Mc, t, g, layer=5,
     rec["bound_ms"], rec["bound_by"] = bound(
         nbytes(q, kv_new, bias_hist, bias_new) + outs
         + B * N * Mc * RW * cache.element_size(), 4.0 * B * N * (Mc + 1) * F)
-    results.append(("step_attention_seq", tag, rec))
+    results.append((name, tag, rec))
 
 
 def step_attend_reorder_case(results, tag, quant, kvg_q8, Mc, g, layer=5,
@@ -998,6 +1174,16 @@ SMALL_RUNS = (                   # (path, make_beam_search_fn kwargs)
     ("megarow", dict(kv_cache_quant=None)),
     ("megarow", dict(kv_cache_quant="int8")),
     ("megarow", dict(kv_cache_quant="int4")),
+    # the megarow dataflows behind the reference's switches
+    ("megarow", dict(kv_cache_quant="int4", qfuse=False)),
+    ("megarow", dict(kv_cache_quant="int8", qfuse=False)),
+    ("megarow", dict(kv_cache_quant="int4", qfuse=False,
+                     kvg_quant_xla=True)),
+    ("megarow", dict(kv_cache_quant="int4", fused_kvg=True)),
+    ("megarow", dict(kv_cache_quant="int4", fused_kvg=True, qfuse=False)),
+    ("megarow", dict(kv_cache_quant=None, fused_kvg=True)),
+    ("megarow", dict(kv_cache_quant="int4", mxu_math=True)),
+    ("megarow", dict(kv_cache_quant="int8", mxu_math=True)),
     ("deferred", dict(megarow=False, kv_cache_quant=None)),
     ("deferred", dict(megarow=False, kv_cache_quant="int8")),
     ("deferred", dict(megarow=False, kv_cache_quant="int8",
@@ -1022,20 +1208,24 @@ def small_agreement():
     tables = succinct_tables(build_trie(rng.integers(0, 16, (300, 8)), 16))
     ids = rng.integers(3, 500, (3, 12)).astype(np.int32)
     mask = np.ones_like(ids)
-    out = {}
+    out, secs = {}, {}
     for dev in ("cpu", "cuda"):
         model = RiporModel(cfg, device=dev)
         model.load_state_dict(sd)
         for i, (_, kw) in enumerate(SMALL_RUNS):
+            t0 = time.monotonic()
             fn = make_beam_search_fn(cfg, 16, dtype=torch.float32,
                                      device=dev, **kw)
             out[dev, i] = [a.cpu().numpy() for a in fn(
                 model, ids, mask, tables_to_torch(tables, dev))]
+            secs[dev, i] = time.monotonic() - t0
     for i, (path, kw) in enumerate(SMALL_RUNS):
         (s0, c0, st0), (s1, c1, st1) = out["cpu", i], out["cuda", i]
         quant = kw.get("kv_cache_quant")
         kvg = " kvg int8" if kw.get("kvg_quant_xla") else ""
-        tag = f"{path} {quant or 'f32'}{kvg}"
+        flow = "".join(f" {k}={v}" for k, v in kw.items()
+                       if k in ("qfuse", "fused_kvg", "mxu_math"))
+        tag = f"{path} {quant or 'f32'}{kvg}{flow}"
         live = s0 > NEG_INF / 2
         check(live.all(), f"small agreement {tag}: every beam live")
         check(np.array_equal(c0[:, 0], c1[:, 0]),
@@ -1049,8 +1239,10 @@ def small_agreement():
         print("small_agreement", json.dumps({
             "path": path, "cache": quant or "f32",
             "kvg_quant_xla": bool(kw.get("kvg_quant_xla")),
+            "dataflow": flow.strip() or "default",
             "top_beam_equal": True,
-            "max_abs_score_diff": float(np.abs(s0 - s1).max())}))
+            "max_abs_score_diff": float(np.abs(s0 - s1).max()),
+            "cpu_s": secs["cpu", i], "cuda_s": secs["cuda", i]}))
 
 
 def where_time_goes(label, search, unprofiled_s, shape=None):
@@ -1219,6 +1411,8 @@ def main_path(world, launches):
         check_beams(quant, trie, scores, bcodes, state)
         check(all(tuple(c) in valid for c in bcodes.reshape(-1, M)[:4000]),
               f"{quant}: beam code not in the corpus")
+        if quant == "int4":      # phase 6b holds its dataflows against it
+            world["int4_b8"] = (scores, bcodes, state)
         if quant == "int4":
             where_time_goes("megarow int4", lambda: eng._fn(
                 eng._model, ids, mask, eng._tables), decode_s)
@@ -1315,6 +1509,87 @@ def other_paths(world, launches):
             "qps_b8": B / decode_s, "max_memory_allocated_gb": peak_gb,
             "launches": counts}))
         where_time_goes(tag, search, decode_s)
+        torch.cuda.empty_cache()
+
+
+# the megarow dataflows behind the reference's switches, at phase 4's
+# int4 search: make_beam_search_fn kwargs, launches one B=8 search must
+# make, whether its codes, states and scores equal the default's bit for
+# bit (tests/test_beam.py:508-573's bar)
+DATAFLOWS = (
+    ("qfuse off", dict(qfuse=False),
+     {"reorder_cache_all_qinsert": M, "step_attention_seq": M * L,
+      "beam_gather_rows": M - 1}, True),
+    ("fused kvg", dict(fused_kvg=True),
+     {"reorder_cache_all_fused": M, "step_attention_seq": M * L}, True),
+    ("fused kvg, qfuse off", dict(fused_kvg=True, qfuse=False),
+     {"reorder_cache_all_fused": M, "step_attention_seq": M * L}, True),
+    ("mxu math", dict(mxu_math=True),
+     {"reorder_cache_all": M, "step_attention_seq_mxu": M * L,
+      "beam_gather_rows": M - 1}, False),
+)
+
+
+def dataflow_paths(world, launches):
+    """Phase 6b: one B=8 beam-1000 search on each megarow dataflow of
+    DATAFLOWS at phase 4's model, corpus, queries and int4 cache (after
+    one warm-up search), with phase 4's checks; counters zeroed just
+    before and read just after must show exactly its launches; two more
+    searches time it (median of three). K1' and K1'' searches equal
+    phase 4's default int4 search bit for bit; for K2' (its gate: phases
+    2 and 3), the codes of the 1000 a query that are not among the
+    default's. Adds the launches to ``launches``."""
+    import torch
+    from ripor_tpu_torch.data.tokenizer import tokenize_queries
+    from ripor_tpu_torch.decode.beam import (expand_groups_to_docids,
+                                             make_beam_search_fn)
+    from ripor_tpu_torch.models import RiporModel
+    from ripor_tpu_torch.ops import KERNEL_LAUNCHES
+    from ripor_tpu_torch.trie import succinct_tables, tables_to_torch
+
+    cfg, trie = world["cfg"], world["trie"]
+    model = RiporModel(cfg, dtype=torch.bfloat16, device="cuda")
+    model.load_state_dict(world["sd"])
+    tables = tables_to_torch(succinct_tables(trie), "cuda")
+    ids, mask = tokenize_queries(world["tok"], world["queries"][:B], 64)
+    ref = world["int4_b8"]
+    for tag, kw, expect, same in DATAFLOWS:
+        fn = make_beam_search_fn(cfg, 1000, kv_cache_quant="int4",
+                                 device="cuda", **kw)
+        fn(model, ids, mask, tables)              # warm-up
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.monotonic()
+        out = tuple(a.cpu().numpy() for a in fn(model, ids, mask, tables))
+        decode_s = time.monotonic() - t0
+        counts = dict(KERNEL_LAUNCHES)
+        check(counts == {k: expect.get(k, 0) for k in counts},
+              f"{tag}: launches {counts}, expected {expect}")
+        scores, bcodes, state = out
+        groups = check_beams(tag, trie, scores, bcodes, state)
+        check_results(tag, [list(zip(*expand_groups_to_docids(
+            trie, groups[b], scores[b], 1000))) for b in range(B)])
+        equal = all(np.array_equal(a, b) for a, b in zip(out, ref))
+        if same:
+            check(equal, f"{tag}: search differs from the default int4 "
+                         f"search")
+        moved = [len({tuple(c) for c in bcodes[b]}
+                     - {tuple(c) for c in ref[1][b]}) for b in range(B)]
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        # two more timed searches, the median reported (as phase 6)
+        times = [decode_s]
+        for _ in range(2):
+            t0 = time.monotonic()
+            fn(model, ids, mask, tables)[0].cpu()
+            times.append(time.monotonic() - t0)
+        decode_s = float(np.median(times))
+        print("dataflow_path", json.dumps({
+            "dataflow": tag, "batch": B, "decode_b8_s": decode_s,
+            "decode_b8_s_runs": times,
+            "ms_per_decode_step_b8": decode_s / M * 1e3,
+            "equal_to_default": equal, "codes_moved_per_query": moved,
+            "launches": {k: v for k, v in counts.items() if v}}))
         torch.cuda.empty_cache()
 
 
@@ -4341,20 +4616,33 @@ def main():
 
     results = []
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    megarow_checks(results, g)
-    deferred_checks(results, g)
-    non_deferred_checks(results, g)
-    write_attend_checks(results, g)
-    oversized_checks(results, g)
-    tp_width_checks(results, g)
-    path_shape_checks(results, g, "phase 11", pipeline_searches(P11))
-    path_shape_checks(results, g, "phase 12", mesh_searches(P12))
-    small_agreement()
-    world = make_world()
+    phase_s = {}        # seconds of each part of phases 2 to 6b
+
+    def timed(part, fn, *args):
+        t0 = time.monotonic()
+        out = fn(*args)
+        phase_s[part] = time.monotonic() - t0
+        return out
+    timed("2 megarow_checks", megarow_checks, results, g)
+    timed("2 dataflow_checks", dataflow_checks, results, g)
+    timed("2 deferred_checks", deferred_checks, results, g)
+    timed("2 non_deferred_checks", non_deferred_checks, results, g)
+    timed("2 write_attend_checks", write_attend_checks, results, g)
+    timed("2 oversized_checks", oversized_checks, results, g)
+    timed("2 tp_width_checks", tp_width_checks, results, g)
+    timed("2 path_shape_checks P11", path_shape_checks, results, g,
+          "phase 11", pipeline_searches(P11))
+    timed("2 path_shape_checks P12", path_shape_checks, results, g,
+          "phase 12", mesh_searches(P12))
+    timed("3 small_agreement", small_agreement)
+    world = timed("4 make_world", make_world)
     launches = {}
-    main_path(world, launches)
+    timed("4 main_path", main_path, world, launches)
     phase6 = {}
-    other_paths(world, phase6)
+    timed("5-6 other_paths", other_paths, world, phase6)
+    phase6b = {}
+    timed("6b dataflow_paths", dataflow_paths, world, phase6b)
+    print("phase_s", json.dumps(phase_s))
     cli_launches = {}
     with tempfile.TemporaryDirectory(prefix="ripor_ws_") as tmp:
         cli_phase(world, cli_launches, tmp)
@@ -4386,7 +4674,17 @@ def main():
                            "bf16 Mc=32 t=31", phase6),
         "beam_gather_blocks": ("ripor_tpu/ops/beam_gather.py:93",
                                "bf16 Mc=32", phase6),
+        # the bodies of the megarow dataflows (phase 6b)
+        "reorder_cache_all_qinsert": ("ripor_tpu/ops/megarow.py:149",
+                                      "int4 Mc=32 t=16", phase6b),
+        "reorder_cache_all_fused": ("ripor_tpu/ops/megarow.py:161",
+                                    "int4 rows Mc=32", phase6b),
+        "step_attention_seq_mxu": ("ripor_tpu/ops/megarow.py:483",
+                                   "int4 Mc=32", phase6b),
     }
+    source = {"reorder_cache_all_qinsert": "reorder_cache_all",
+              "reorder_cache_all_fused": "reorder_cache_all",
+              "step_attention_seq_mxu": "step_attention_seq"}
     kernels = []
     for name, (replaces, case, counts) in kernels_of.items():
         recs = [r for n, _, r in results if n == name]
@@ -4394,7 +4692,7 @@ def main():
         check(counts[name] > 0, f"kernel {name} never launched on its path")
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"ripor_tpu_torch/csrc/{name}.cu",
+            "source": f"ripor_tpu_torch/csrc/{source.get(name, name)}.cu",
             "replaces": replaces, "launches": counts[name],
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": main["ms"], "plain_ms": main["plain_ms"],

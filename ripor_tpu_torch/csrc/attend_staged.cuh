@@ -12,7 +12,9 @@
 //   RB (K2, K4 on bf16 and quantized rows): every k*q product and every
 //     (probability * 2^ev, rounded to bf16) * v product is rounded to bf16
 //     before its f32 sum; the position-t term pn * v_new is an unrounded f32
-//     product;
+//     product; with XPV (K2' on quantized rows, the reference's
+//     _seq_math_quant_mxu) the k*q products are rounded as with RB, the
+//     probabilities too, but each p*v product is the exact f32 product;
 //   exact products (K5, K8, and K2, K4 on f32 rows): k*q and p*v are f32
 //     products of the stored values (for bf16 storage the k*q products are
 //     exact), f32 sums; K8 rounds only the probabilities to bf16 (RPROB,
@@ -380,14 +382,20 @@ struct Chunk<2> {
       p[2 * i + 1] = bmul(nib2(x[i] >> 8), q[2 * i + 1]);
     }
   }
-  __device__ static void pv(const char* v, uint32_t pe, uint32_t* p) {
+  // the chunk's V values as bf16x2 pairs (exact integers)
+  __device__ static void vals(const char* v, uint32_t* p) {
     const uint4 w = *reinterpret_cast<const uint4*>(v);
     const uint32_t x[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      p[2 * i] = bmul(nib2(x[i] >> 4), pe);
-      p[2 * i + 1] = bmul(nib2(x[i] >> 12), pe);
+      p[2 * i] = nib2(x[i] >> 4);
+      p[2 * i + 1] = nib2(x[i] >> 12);
     }
+  }
+  __device__ static void pv(const char* v, uint32_t pe, uint32_t* p) {
+    vals(v, p);
+#pragma unroll
+    for (int j = 0; j < WORDS; ++j) p[j] = bmul(p[j], pe);
   }
 };
 
@@ -407,15 +415,20 @@ struct Chunk<1> {
       p[2 * i + 1] = bmul(i8pair(xu, 2), q[2 * i + 1]);
     }
   }
-  __device__ static void pv(const char* v, uint32_t pe, uint32_t* p) {
+  __device__ static void vals(const char* v, uint32_t* p) {
     const uint4 w = *reinterpret_cast<const uint4*>(v);
     const uint32_t x[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const uint32_t xu = x[i] ^ 0x80808080u;
-      p[2 * i] = bmul(i8pair(xu, 0), pe);
-      p[2 * i + 1] = bmul(i8pair(xu, 2), pe);
+      p[2 * i] = i8pair(xu, 0);
+      p[2 * i + 1] = i8pair(xu, 2);
     }
+  }
+  __device__ static void pv(const char* v, uint32_t pe, uint32_t* p) {
+    vals(v, p);
+#pragma unroll
+    for (int j = 0; j < WORDS; ++j) p[j] = bmul(p[j], pe);
   }
 };
 
@@ -501,14 +514,19 @@ struct Dims {
 };
 
 // NEW: position t's own k/v join the softmax (all but K8); RPROB: round the
-// probabilities to bf16 (K8 on bf16 caches).
-template <typename T, int KIND, bool NEW = true, bool RPROB = false>
+// probabilities to bf16 (K8 on bf16 caches); XPV: exact p*v products on
+// quantized rows (K2').
+template <typename T, int KIND, bool NEW = true, bool RPROB = false,
+          bool XPV = false>
 struct Core {
   static constexpr bool RB =
       KIND == 1 || KIND == 2 ||
       (KIND == 0 && std::is_same<T, __nv_bfloat16>::value);
   static constexpr bool RP = RB || RPROB;
   static constexpr bool SCALED = KIND == 1 || KIND == 2;
+  static_assert(!XPV || SCALED, "XPV is a mode of quantized rows");
+  // p*v products rounded to bf16
+  static constexpr bool RV = RB && !XPV;
   static constexpr int CPC = chunk_cols<T, KIND>();
 
   Layout lay;
@@ -719,7 +737,7 @@ struct Core {
         for (int m = b.m0; m < m1; ++m) {
           const float v = m == b.ovr ? bf16_round(to_f(b.kg[F + f]))
                                      : row_v<T, KIND>(vrow(b, m), f, F);
-          acc += rd<RB>(pe_f(m * H + h) * v);
+          acc += rd<RV>(pe_f(m * H + h) * v);
         }
         if (!last) {
           pt[f] = acc;
@@ -750,11 +768,20 @@ struct Core {
           const float w = pe_f(m * H + h);
 #pragma unroll
           for (int i = 0; i < CPC; ++i)
-            acc[i] += rd<RB>(w * bf16_round(to_f(b.kg[F + f0 + i])));
+            acc[i] += rd<RV>(w * bf16_round(to_f(b.kg[F + f0 + i])));
           continue;
         }
         const char* v = vrow(b, m) + v_off<T, KIND>(f0, F);
-        if constexpr (RB) {
+        if constexpr (XPV) {
+          const float w = pe_f(m * H + h);
+          uint32_t p[Chunk<KIND>::WORDS];
+          Chunk<KIND>::vals(v, p);
+#pragma unroll
+          for (int j = 0; j < Chunk<KIND>::WORDS; ++j) {
+            acc[Chunk<KIND>::col(j, 0)] += __fmul_rn(w, lo_f(p[j]));
+            acc[Chunk<KIND>::col(j, 1)] += __fmul_rn(w, hi_f(p[j]));
+          }
+        } else if constexpr (RB) {
           uint32_t p[Chunk<KIND>::WORDS];
           Chunk<KIND>::pv(v, pe()[m * H + h], p);
 #pragma unroll

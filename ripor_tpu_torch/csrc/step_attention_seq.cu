@@ -1,7 +1,10 @@
 // K2: one-position self-attention over the reordered megarow cache.
 //
 // Replaces: ripor_tpu/ops/megarow.py::step_attention_seq (Pallas
-// _seq_kernel, math _seq_math / _seq_math_quant, QFUSE _emit_quant_rows).
+// _seq_kernel and _seq_kernel_stream, math _seq_math / _seq_math_quant,
+// QFUSE _emit_quant_rows), and with mxu (K2') its RIPOR_MR_MXU math
+// _seq_math_quant_mxu on int8/int4 rows: the same products for the
+// scores, exact f32 p*v products (attend_staged.cuh, XPV).
 // Plain version: ripor_tpu_torch/ops/megarow.py::step_attention_seq_plain.
 //
 // For beam (b, n) and layer l: scores over the Mc cache slots of
@@ -35,8 +38,9 @@ using namespace ripor::staged;
 namespace {
 
 // KIND: 0 exact rows (dtype T, RW = 2F), 1 int8 rows, 2 packed int4 rows;
-// CHUNKED: the slab streams in slot chunks of mcs slots
-template <typename T, int KIND, bool CHUNKED>
+// CHUNKED: the slab streams in slot chunks of mcs slots; XPV: K2', exact
+// p*v products (quantized rows)
+template <typename T, int KIND, bool CHUNKED, bool XPV>
 __global__ void __launch_bounds__(kThreads, CHUNKED ? 1 : kMinBlocks)
 step_attention_seq_kernel(const T* __restrict__ q,
                           const T* __restrict__ kv_new,
@@ -84,8 +88,8 @@ step_attention_seq_kernel(const T* __restrict__ q,
     return;
   }
 
-  const Core<T, KIND> core{lay, smem, Dims{Mc, F, H, F / H, row_bytes,
-                                           vec != 0}};
+  const Core<T, KIND, true, false, XPV> core{
+      lay, smem, Dims{Mc, F, H, F / H, row_bytes, vec != 0}};
   int i = 0;
   for (long long beam = blockIdx.x; beam < BN; beam += gridDim.x) {
     for (int j = 0; j < ch.loads(); ++j, ++i) {
@@ -145,7 +149,7 @@ __global__ void staged_products_kernel(const uint16_t* __restrict__ q,
   }
 }
 
-template <typename T, int KIND>
+template <typename T, int KIND, bool XPV>
 cudaError_t launch(const void* q, const void* kv_new, const void* cache,
                    const void* bias_hist, const void* bias_new, void* attn,
                    void* kvq, long long BN, int L, int Mc, int F, int H,
@@ -165,8 +169,8 @@ cudaError_t launch(const void* q, const void* kv_new, const void* cache,
   const int bulk = (mcs < Mc ? row_bytes : Mc * row_bytes) % 16 == 0 &&
                    (static_cast<long long>(F) * sizeof(T)) % 16 == 0 &&
                    aligned16(q) && aligned16(kv_new) && aligned16(cache);
-  auto kernel = mcs < Mc ? step_attention_seq_kernel<T, KIND, true>
-                         : step_attention_seq_kernel<T, KIND, false>;
+  auto kernel = mcs < Mc ? step_attention_seq_kernel<T, KIND, true, XPV>
+                         : step_attention_seq_kernel<T, KIND, false, XPV>;
   int resident;
   err = resident_blocks(reinterpret_cast<const void*>(kernel),
                         static_cast<int>(smem), &resident);
@@ -186,7 +190,7 @@ cudaError_t launch(const void* q, const void* kv_new, const void* cache,
 // kind: 0 exact, 1 int8, 2 int4; is_f32: q/kv_new/attn (and exact rows)
 // are float32, else bfloat16. kvq may be null when emit == 0. mcs (slots
 // a stage holds), stages and smem: the launch plan of
-// ripor_tpu_torch/ops/staging.py.
+// ripor_tpu_torch/ops/staging.py. mxu: K2' (kinds 1 and 2 only).
 extern "C" int step_attention_seq(const void* q, const void* kv_new,
                                   const void* cache, const void* bias_hist,
                                   const void* bias_new, void* attn, void* kvq,
@@ -195,23 +199,29 @@ extern "C" int step_attention_seq(const void* q, const void* kv_new,
                                   long long layer, long long kind,
                                   long long is_f32, long long emit,
                                   long long mcs, long long stages,
-                                  long long smem, void* stream) {
+                                  long long smem, long long mxu,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (BN == 0) return cudaSuccess;
-#define RIPOR_LAUNCH(T, K)                                                 \
-  err = launch<T, K>(q, kv_new, cache, bias_hist, bias_new, attn, kvq, BN, \
-                     int(L), int(Mc), int(F), int(H), int(RW), int(layer), \
-                     int(emit), mcs, stages, smem, s)
+  if (mxu && kind == 0) return cudaErrorInvalidValue;
+#define RIPOR_LAUNCH(T, K, X)                                              \
+  err = launch<T, K, X>(q, kv_new, cache, bias_hist, bias_new, attn, kvq,  \
+                        BN, int(L), int(Mc), int(F), int(H), int(RW),      \
+                        int(layer), int(emit), mcs, stages, smem, s)
+#define RIPOR_LAUNCH_Q(T, K)        \
+  if (mxu) RIPOR_LAUNCH(T, K, true); \
+  else RIPOR_LAUNCH(T, K, false)
   if (is_f32) {
-    if (kind == 0) RIPOR_LAUNCH(float, 0);
-    else if (kind == 1) RIPOR_LAUNCH(float, 1);
-    else if (kind == 2) RIPOR_LAUNCH(float, 2);
+    if (kind == 0) RIPOR_LAUNCH(float, 0, false);
+    else if (kind == 1) { RIPOR_LAUNCH_Q(float, 1); }
+    else if (kind == 2) { RIPOR_LAUNCH_Q(float, 2); }
   } else {
-    if (kind == 0) RIPOR_LAUNCH(__nv_bfloat16, 0);
-    else if (kind == 1) RIPOR_LAUNCH(__nv_bfloat16, 1);
-    else if (kind == 2) RIPOR_LAUNCH(__nv_bfloat16, 2);
+    if (kind == 0) RIPOR_LAUNCH(__nv_bfloat16, 0, false);
+    else if (kind == 1) { RIPOR_LAUNCH_Q(__nv_bfloat16, 1); }
+    else if (kind == 2) { RIPOR_LAUNCH_Q(__nv_bfloat16, 2); }
   }
+#undef RIPOR_LAUNCH_Q
 #undef RIPOR_LAUNCH
   return static_cast<int>(err);
 }

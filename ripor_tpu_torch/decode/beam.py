@@ -5,7 +5,9 @@ decode paths. Per step, after the projections of each layer:
 
   megarow (default when the segment spans are even):
     K1 reorder of all layers (pending beam permutation + slot t-1 insert)
-    -> per layer K2 step attention (QFUSE: it also emits quantized rows)
+    -> per layer K2 step attention (QFUSE: it also emits quantized rows;
+    ``qfuse=False``: K1' quantizes exact rows on insert instead;
+    ``fused_kvg``: K1'' gathers the rows itself; ``mxu_math``: K2')
   deferred per-layer (megarow=False):
     per layer K4: reorder of that layer + slot t-1 insert + attention
   non-deferred (deferred=False; the default when a span is odd):
@@ -15,7 +17,8 @@ decode paths. Per step, after the projections of each layer:
 
   -> cross-attention, FFN -> codebook-head logits -> trie mask -> top-k
   -> megarow, deferred: K3 gather of this step's K|V rows into the new
-     beam order; non-deferred: K3 + K6, the cache reorder with the slot t
+     beam order (none with fused_kvg); non-deferred: K3 + K6, the cache
+     reorder with the slot t
      insert; write-then-attend: K7, the cache reorder (both every step
      but the last)
 
@@ -45,7 +48,8 @@ import torch
 from ripor_tpu_torch.core.mesh import (DATA_AXIS, MODEL_AXIS, all_gather_cat,
                                        axis_size)
 from ripor_tpu_torch.models.config import RiporConfig
-from ripor_tpu_torch.ops.attend_reorder import quantize_rows_plain
+from ripor_tpu_torch.ops.attend_reorder import (quantize_rows_int4_plain,
+                                                quantize_rows_plain)
 from ripor_tpu_torch.ops.beam_gather import (beam_gather_blocks,
                                              beam_gather_rows,
                                              beam_gather_update)
@@ -179,6 +183,9 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
                         kvg_quant_xla: Optional[bool] = None,
                         megarow: Optional[bool] = None,
                         ffn_int8: Optional[bool] = None,
+                        qfuse: bool = True,
+                        fused_kvg: bool = False,
+                        mxu_math: bool = False,
                         device=None):
     """Build a beam-search function.
 
@@ -203,21 +210,35 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
     use_pallas_gather=False, the write-then-attend path), which holds
     exact caches only. ``kv_cache_quant``
     "int8"/"int4" (or kv_cache_int8=True) stores the cache quantized and
-    needs a deferred path. On the megarow path K2 emits each step's rows
-    already quantized (QFUSE), the only quantized megarow dataflow
-    ported, bit-identical to the others by the reference's own test. On
-    the deferred path K4 quantizes step t-1's exact rows as it inserts
-    them, unless ``kvg_quant_xla`` (int8 caches only) quantizes them once
-    per step before the gather; on the megarow path ``kvg_quant_xla`` is
-    subsumed by QFUSE and has no effect. ``ffn_int8=True`` runs the
-    decode-step FFN with per-channel int8 weights (quantized once per
-    call) and per-row int8 activations (ops/int8_ffn.py), on the megarow
-    and deferred paths and for the non-gated FFN only, as the reference
-    (its ValueErrors otherwise); None means off.
+    needs a deferred path. On the deferred path K4 quantizes step t-1's
+    exact rows as it inserts them, unless ``kvg_quant_xla`` (int8 caches
+    only) quantizes them once per step before the gather.
 
-    The reference's other TPU knobs — the RIPOR_* switches, chunk and
-    layer-group picks, the ceil-8 slot rounding and the beam padding —
-    have no counterpart: they served the TPU's tiling and VMEM. Where the
+    The megarow path's kvg dataflow follows the reference's
+    (beam.py:300-338, :478-506), with its switches as arguments:
+    ``qfuse`` (RIPOR_MR_QFUSE, default True): on a quantized cache K2
+    emits each step's rows already quantized, K3 gathers them and K1
+    inserts them verbatim; ``qfuse=False``: K3 gathers the exact rows and
+    K1' quantizes them on insert, or with ``kvg_quant_xla``
+    (RIPOR_MR_KVG_XLA) plain torch quantizes them once a step before K3
+    and K1 inserts them verbatim. ``fused_kvg`` (RIPOR_MR_FUSED_KVG):
+    the rows stay un-permuted and K1'' gathers them by src, so no K3
+    runs. ``mxu_math`` (RIPOR_MR_MXU): K2' on a quantized cache. The
+    searches are bit-identical whatever ``qfuse``, ``fused_kvg`` and
+    ``kvg_quant_xla``; ``mxu_math`` rounds the p*v products otherwise
+    (held at the reference's gates). As in the reference, ``qfuse`` and
+    ``mxu_math`` have no effect on an exact cache (where ``kvg_quant_xla``
+    is refused), and the three switches none off the megarow path.
+
+    ``ffn_int8=True`` runs the decode-step FFN with per-channel int8
+    weights (quantized once per call) and per-row int8 activations
+    (ops/int8_ffn.py), on the megarow and deferred paths and for the
+    non-gated FFN only, as the reference (its ValueErrors otherwise);
+    None means off.
+
+    The reference's other TPU knobs — the other RIPOR_* switches, chunk
+    and layer-group picks, the ceil-8 slot rounding and the beam padding
+    — have no counterpart: they served the TPU's tiling and VMEM. Where the
     reference's default for use_pallas_gather follows the backend, the
     port's is True everywhere, so a call without it keeps its kernel
     path.
@@ -273,6 +294,16 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
     # the deferred per-layer path with int8 rows quantized before the
     # gather (validated above: an int8 cache)
     kvg_q8 = bool(kvg_quant_xla) and not megarow
+    # the megarow kvg dataflow: QFUSE (K2 emits cache rows), or plain
+    # torch quantizing before the gather (kvg_quant_xla without QFUSE),
+    # or exact rows that K1' quantizes on insert; fused: K1'' gathers
+    mr_qfuse = megarow and qfuse and quant is not None
+    mr_quant_xla = (megarow and quant is not None and not mr_qfuse
+                    and bool(kvg_quant_xla))
+    mr_fused = megarow and fused_kvg
+    mr_mxu = megarow and mxu_math
+    quantize_plain = (quantize_rows_int4_plain if quant == "int4"
+                      else quantize_rows_plain)
     # the reference's XLA path: slot t written before the attention
     write_attend = not deferred and not use_pallas_gather
     dev = resolve_device(device)
@@ -343,12 +374,14 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
         src_prev = torch.arange(N, dtype=torch.int32,
                                 device=dev).expand(B, N).contiguous()
         # the deferred paths' pending rows of step t-1, in current beam
-        # order: cache-layout rows on the megarow path (its QFUSE rows,
-        # or exact rows) and with kvg_quant_xla, else exact K|V rows. The
+        # order (un-permuted with fused_kvg): cache-layout rows on the
+        # megarow path with an exact cache, QFUSE or kvg_quant_xla, and on
+        # the deferred path with kvg_quant_xla, else exact K|V rows. The
         # t=0 placeholder is never read unmasked (megarow inserts it at
         # slot 0, rewritten at t=1; K4 inserts nothing at t=0); zeros keep
         # it finite.
-        if megarow or kvg_q8:
+        if (megarow and (quant is None or mr_qfuse or mr_quant_xla)
+                or kvg_q8):
             kvg = torch.zeros(B, N, L * cache.shape[-1], dtype=cache.dtype,
                               device=dev)
         else:
@@ -361,7 +394,8 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
                 if megarow:
                     logits, spare, kv_new = model.decode_step_megarow(
                         tokens, cache, spare, src_prev, kvg, *ctx, t,
-                        emit_quant=quant, ffn_q=ffn_q)
+                        emit_quant=quant if mr_qfuse else None, ffn_q=ffn_q,
+                        fused_kvg=mr_fused, mxu_math=mr_mxu)
                     cache, spare = spare, cache
                 elif deferred:
                     logits, spare, kv_new = model.decode_step_deferred(
@@ -382,10 +416,11 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
                     continue
                 if deferred:
                     src_prev = src
-                    if kvg_q8:
-                        kv_new = quantize_rows_plain(
+                    if kvg_q8 or mr_quant_xla:
+                        kv_new = quantize_plain(
                             kv_new.view(B, N, L, -1), H).view(B, N, -1)
-                    kvg = beam_gather_rows(kv_new, src)
+                    kvg = kv_new if mr_fused else beam_gather_rows(kv_new,
+                                                                   src)
                 else:
                     spare = _reorder_cache(cache, src, kv_new, t, spare)
                     cache, spare = spare, cache

@@ -289,22 +289,28 @@ class Decoder(nn.Module):
     def decode_step_megarow(self, x, cache_src, cache_dst, src, kvg,
                             cross_kv: CrossKV, enc_bias, self_bias_full,
                             t: int, emit_quant: Optional[str] = None,
-                            ffn_q=None):
+                            ffn_q=None, fused_kvg: bool = False,
+                            mxu_math: bool = False):
         """One decode step over the megarow cache: K1 completes the pending
         beam reorder (and the slot t-1 insert) from ``cache_src`` into
         ``cache_dst``, then each layer runs K2 over its reordered rows.
 
         x: [B, N, d] position-t input embeddings (current beams);
-        src: [B, N] int32 current beam -> previous row; kvg: [B, N, L*RW]
-        step t-1's rows in current beam order; t: Python int.
+        src: [B, N] int32 current beam -> previous row; kvg: [B, N, L*w]
+        step t-1's rows: cache-layout rows, or exact [2F] rows that K1
+        quantizes on insert into a quantized cache (K1'); in current beam
+        order, or un-permuted with ``fused_kvg`` (K1'' gathers them by
+        src); t: Python int.
         Returns (hidden [B, N, d], cache_dst, kv_new [B, N, L*w]) where
-        kv_new stacks this step's rows per layer: exact [2F] rows, or with
-        ``emit_quant`` the cache-layout rows K2 emitted (QFUSE).
+        kv_new stacks this step's rows per layer: exact [2F] rows (also on
+        a quantized cache), or with ``emit_quant`` the cache-layout rows
+        K2 emitted (QFUSE). ``mxu_math``: K2' on a quantized cache.
         ``ffn_q``: optional stacked int8 FFN weights (ops/int8_ffn.py
         quantize_ffn), layer l taking index l of each."""
         bias_hist, bias_new = self._step_biases(self_bias_full, t,
                                                 cache_src.shape[3])
-        cache = reorder_cache_all(kvg, cache_src, cache_dst, src, t)
+        cache = reorder_cache_all(kvg, cache_src, cache_dst, src, t,
+                                  self.cfg.num_heads, fused_kvg=fused_kvg)
         kvnews = []
         for l, (layer, (enc_k, enc_v)) in enumerate(zip(self.layers,
                                                          cross_kv)):
@@ -312,7 +318,8 @@ class Decoder(nn.Module):
             kvf = torch.cat([k, v], dim=-1)
             attn = step_attention_seq(q, kvf, cache, l, bias_hist, bias_new,
                                       self.cfg.num_heads,
-                                      emit_quant=emit_quant)
+                                      emit_quant=emit_quant,
+                                      mxu_math=mxu_math)
             if emit_quant:
                 attn, kvf = attn
             kvnews.append(kvf)

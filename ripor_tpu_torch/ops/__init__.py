@@ -2,10 +2,12 @@
 sm_90a (sources in ripor_tpu_torch/csrc/) with its plain PyTorch version
 beside it. A wrapper runs the plain version only for CPU tensors; for a
 CUDA tensor it launches the kernel or raises. ``KERNEL_LAUNCHES`` counts
-kernel launches per wrapper.
+kernel launches per kernel body.
 
   megarow path:            K1 reorder_cache_all, K2 step_attention_seq,
-                           K3 beam_gather_rows
+                           K3 beam_gather_rows; its dataflows' bodies
+                           K1' (quantize on insert) and K1'' (fused kvg
+                           gather) of K1, K2' (mxu_math) of K2
   deferred path:           K4 step_attend_reorder, K3
   non-deferred path:       K5 step_attention_fused, K3, K6 beam_gather_update
   write-then-attend path:  K8 step_attention, K7 beam_gather_blocks

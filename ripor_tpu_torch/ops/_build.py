@@ -31,11 +31,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", "-lineinfo"]
 
-# launches per kernel wrapper; the wrappers add one where they launch
-# their kernel and nowhere else (chip_smoke.py zeroes and reads them)
+# launches per kernel body; the wrappers add one where they launch their
+# kernel and nowhere else (chip_smoke.py zeroes and reads them). K1 has
+# three bodies (verbatim insert, quantize on insert, fused kvg gather), K2
+# two (the default math and the exact p*v products of mxu_math)
 KERNEL_LAUNCHES: Dict[str, int] = {
     "reorder_cache_all": 0,
+    "reorder_cache_all_qinsert": 0,
+    "reorder_cache_all_fused": 0,
     "step_attention_seq": 0,
+    "step_attention_seq_mxu": 0,
     "beam_gather_rows": 0,
     "step_attend_reorder": 0,
     "step_attention_fused": 0,

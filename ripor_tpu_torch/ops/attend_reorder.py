@@ -148,14 +148,16 @@ def decode_rows(rows: torch.Tensor, F: int, num_heads: int,
 
 
 def attend_plain(q, k_new, v_new, k_hist, v_hist, bias_hist, bias_new,
-                 num_heads: int, dot_dt, ek=None, ev=None):
+                 num_heads: int, dot_dt, ek=None, ev=None,
+                 exact_pv: bool = False):
     """One-query attention per beam over Mc slots plus position t's own
     k/v, with the reference math's rounding points (attend_staged.cuh is
     its device twin): k·q products are formed in
     ``dot_dt`` before the f32 per-head sums; probabilities (times the V
     scale ``ev`` for quantized rows) are cast to ``dot_dt`` before they
-    multiply V, and that product is formed in ``dot_dt`` too; sums and
-    softmax are f32.
+    multiply V, and that product is formed in ``dot_dt`` too (with
+    ``exact_pv``, exactly in f32: the reference's _seq_math_quant_mxu);
+    sums and softmax are f32.
 
     q, k_new, v_new: [B, N, F]; k_hist, v_hist: [B, N, Mc, F] in
     ``dot_dt``; ek, ev: [B, N, Mc, H] float32 scales or None; bias_hist
@@ -177,8 +179,8 @@ def attend_plain(q, k_new, v_new, k_hist, v_hist, bias_hist, bias_new,
     if ev is not None:
         ps = ps * ev
     pe = ps.to(dot_dt).repeat_interleave(D, dim=-1)       # [B, N, Mc, F]
-    if dot_dt == torch.float32:
-        out = (pe * v_hist.float()).sum(2)
+    if dot_dt == torch.float32 or exact_pv:
+        out = (pe.float() * v_hist.float()).sum(2)
     else:
         out = (pe * v_hist).float().sum(2)
     pn = probs[:, :, Mc].to(dot_dt).float().repeat_interleave(D, dim=-1)

@@ -643,6 +643,123 @@ def test_staged_planes_keep_exact_products(kernel, gen):
     torch.testing.assert_close(a.float(), b.float(), rtol=2e-2, atol=2e-2)
 
 
+# ---------------------------------------------------------------------------
+# K1' (quantize on insert), K1'' (the fused kvg gather) and K2' (exact p*v
+# products), each with its own launch counter
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("t", [0, 5])
+@pytest.mark.parametrize("quant,kvg_rows", [
+    ("int8", "bf16"), ("int4", "bf16"), ("int8", "f32"), ("int4", "f32"),
+    ("int8", "cache"), ("int4", "cache"), (None, "cache")])
+@pytest.mark.parametrize("Bq,Nq,Mc,H,D", [(2, 40, 8, 12, 64),
+                                          (2, 30, 8, 2, 20)])
+def test_reorder_bodies_match_plain(Bq, Nq, Mc, H, D, quant, kvg_rows, t,
+                                    fused, gen):
+    """Every body of K1 bit-equal to its plain version: exact bf16/f32 kvg
+    rows quantized on insert (K1'), cache-layout rows inserted verbatim,
+    each read in order or through src (K1''); D = 20 gives rows of no
+    16-byte multiple (int4: 168 bytes), so the byte loop runs."""
+    from ripor_tpu_torch.ops.megarow import reorder_body
+    F, L = H * D, 3
+    cache = _rows(quant, (Bq, Nq, L, Mc), F, H, gen)
+    src = torch.randint(0, Nq, (Bq, Nq), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    kv = torch.randn(Bq, Nq, L, 2 * F, generator=gen, device="cuda") * 3
+    if kvg_rows == "cache":
+        kvg = _rows(quant, (Bq, Nq, L), F, H, gen)
+        insert = None
+    else:
+        kvg = kv.to(torch.float32 if kvg_rows == "f32" else torch.bfloat16)
+        insert = quant
+    kvg = kvg.reshape(Bq, Nq, -1).contiguous()
+    name = reorder_body(insert is not None, fused)
+    before = dict(KERNEL_LAUNCHES)
+    got = reorder_cache_all(kvg, cache, torch.empty_like(cache), src, t, H,
+                            fused_kvg=fused)
+    want = reorder_cache_all_plain(kvg, cache, torch.empty_like(cache), src,
+                                   t, H, fused_kvg=fused)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert KERNEL_LAUNCHES[name] == before[name] + 1
+    assert sum(KERNEL_LAUNCHES.values()) == sum(before.values()) + 1
+
+
+def test_quantize_on_insert_equals_qfuse_rows(gen):
+    """K1' inserts the bytes K2's QFUSE rows carry: the same codec on the
+    same values, so quantize-then-gather and gather-then-quantize agree."""
+    Bq, Nq, Mc, L = 2, 40, 8, 3
+    for quant in ("int8", "int4"):
+        cache = _rows(quant, (Bq, Nq, L, Mc), F, H, gen)
+        src = torch.randint(0, Nq, (Bq, Nq), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        kv = torch.randn(Bq, Nq, L, 2 * F, generator=gen,
+                         device="cuda").bfloat16()
+        qrows = (quantize_rows_plain if quant == "int8"
+                 else quantize_rows_int4_plain)(kv, H)
+        a = reorder_cache_all(kv.reshape(Bq, Nq, -1), cache,
+                              torch.empty_like(cache), src, 6, H,
+                              fused_kvg=True)
+        b = reorder_cache_all(qrows.reshape(Bq, Nq, -1), cache,
+                              torch.empty_like(cache), src, 6,
+                              fused_kvg=True)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("emit", [False, True])
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+@pytest.mark.parametrize("Bq,Nq,Mc,H,D,dtype", [
+    *[(*shape, torch.bfloat16) for shape in STAGED_SHAPES],
+    (2, 300, 32, 12, 64, torch.float32),     # f32 q, t5-base width
+    (2, 50, 32, 32, 128, torch.bfloat16),    # t5-3b: int8 slot chunks
+])
+def test_staged_seq_mxu_math(Bq, Nq, Mc, H, D, dtype, quant, emit, gen):
+    """K2' (mxu_math on int8/int4 rows) against its plain version at the
+    staged kernels' bar, its QFUSE rows bit-equal, counted apart from
+    K2."""
+    F, L = H * D, 2
+    cache = _rows(quant, (Bq, Nq, L, Mc), F, H, gen)
+    t = max(Mc - 1, 1)
+    q, kv_new, bias_hist, bias_new = _attn_inputs(Bq, Nq, F, H, Mc, t, gen,
+                                                  dtype)
+    args = (q, kv_new, cache, 1, bias_hist, bias_new, H,
+            quant if emit else None)
+    before = dict(KERNEL_LAUNCHES)
+    a = step_attention_seq(*args, mxu_math=True)
+    b = step_attention_seq_plain(*args, mxu_math=True)
+    torch.cuda.synchronize()
+    if emit:
+        (a, aq), (b, bq) = a, b
+        assert torch.equal(aq, bq)
+    torch.testing.assert_close(a.float(), b.float(), rtol=2e-2, atol=2e-2)
+    assert KERNEL_LAUNCHES["step_attention_seq_mxu"] == \
+        before["step_attention_seq_mxu"] + 1
+    assert KERNEL_LAUNCHES["step_attention_seq"] == \
+        before["step_attention_seq"]
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_mxu_math_keeps_exact_value_products(quant, gen):
+    """K2' forms each p*v product exactly: in f32 (q, kv_new and the
+    output), the kernel stays within sum-order noise of the exact-product
+    plain version, ten times closer than the default's rounded products
+    are."""
+    Bq, Nq, Mc, L = 2, 200, 32, 1
+    cache = _rows(quant, (Bq, Nq, L, Mc), F, H, gen)
+    q, kv_new, bias_hist, bias_new = _attn_inputs(Bq, Nq, F, H, Mc, Mc - 1,
+                                                  gen, torch.float32)
+    args = (q, kv_new, cache, 0, bias_hist, bias_new, H)
+    a = step_attention_seq(*args, mxu_math=True)
+    b = step_attention_seq_plain(*args, mxu_math=True)
+    c = step_attention_seq_plain(*args)
+    torch.cuda.synchronize()
+    err = (a - b).abs().max().item()
+    gap = (c - b).abs().max().item()
+    assert err * 10 < gap, (err, gap)
+
+
 def test_cli_retrieve_on_card_equals_engine(gen, tmp_path):
     """The port's `retrieve` CLI on the card (a toy workspace the port
     writes) gives the run RetrievalEngine gives on the card: same docids

@@ -129,6 +129,27 @@ def test_beam_gather_update_plain_bit_exact(dtype, n, t):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_beam_gather_update_matches_aliased_body():
+    """The reference's aliased body (_gather_update_kernel_aliased, under
+    ``dest=``: the output written into a ping-pong buffer) is K6 writing
+    into its ``out`` buffer: bit-exact, and the buffer's old contents
+    play no part."""
+    rng = np.random.default_rng(9)
+    G = 2 * L * B
+    cache = (rng.standard_normal((G, N, Mc, F)) * 50).astype(np.float32)
+    kvg = (rng.standard_normal((G, N, F)) * 50).astype(np.float32)
+    src = rng.integers(0, N, (G, N)).astype(np.int32)
+    dest = (rng.standard_normal(cache.shape) * 50).astype(np.float32)
+    want = np.asarray(jax_update(jnp.asarray(cache), jnp.asarray(kvg),
+                                 jnp.asarray(src), 5, jnp.asarray(dest),
+                                 interpret=True))
+    out = torch.from_numpy(dest.copy())
+    got = beam_gather_update(torch.from_numpy(cache), torch.from_numpy(kvg),
+                             torch.from_numpy(src), 5, out)
+    assert got is out
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_beam_gather_update_refuses_slot_outside_cache():
     c = torch.zeros(2, 3, Mc, F)
     with pytest.raises(ValueError, match="slot"):

@@ -11,16 +11,21 @@ from ripor_tpu.models import ripor_small
 from ripor_tpu_torch.models import RiporModel, params_from_jax
 
 
-def setup(M=6, K=8, n_docs=40, batch=2, seed=0):
+def setup(M=6, K=8, n_docs=40, batch=2, seed=0, jax_init=True):
     """-> (cfg, flax params, ids, mask, doc_codes), as in
-    tests/test_beam.py::setup (ids/mask/doc_codes are numpy)."""
+    tests/test_beam.py::setup (ids/mask/doc_codes are numpy). With
+    ``jax_init=False`` the params come from seeded_params (no JAX
+    compile; other values)."""
     cfg = ripor_small(M=M, K=K)
     rng = np.random.default_rng(seed)
     ids = rng.integers(1, 100, (batch, 10)).astype(np.int32)
     mask = np.ones_like(ids)
-    params = JaxRiporModel(cfg).init(
-        {"params": jax.random.PRNGKey(seed)}, jnp.asarray(ids),
-        jnp.asarray(mask), jnp.zeros((batch, M), jnp.int32))["params"]
+    if not jax_init:
+        params = seeded_params(cfg, seed)
+    else:
+        params = JaxRiporModel(cfg).init(
+            {"params": jax.random.PRNGKey(seed)}, jnp.asarray(ids),
+            jnp.asarray(mask), jnp.zeros((batch, M), jnp.int32))["params"]
     doc_codes = rng.integers(0, K, (n_docs, M))
     return cfg, params, ids, mask, doc_codes
 
