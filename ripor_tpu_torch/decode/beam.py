@@ -27,7 +27,9 @@ next step completes it while copying the cache into the other buffer of a
 pair that is swapped by reference each step; the other two paths swap
 their pair at each reorder. The whole loop issues no host sync (no
 ``.item()``, no tensor in a Python condition), so on the card the host
-runs ahead and the device never waits for it.
+runs ahead. On the megarow path on the card the plain-torch work between
+the kernels replays as CUDA graphs (make_beam_search_fn's docstring), so
+the host's launches no longer set the pace of a search.
 
 Score semantics match the reference: raw cumulative logits, no EOS, every
 sequence runs all M steps, optional log-softmax in the model.
@@ -39,8 +41,12 @@ rank.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Optional, Tuple
+import threading
+import types
+import weakref
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +62,15 @@ from ripor_tpu_torch.ops.beam_gather import (beam_gather_blocks,
 from ripor_tpu_torch.ops.int8_ffn import quantize_ffn
 
 NEG_INF = -1e30
+
+# The steps of make_beam_search_fn's searches: "captures" counts searches
+# that captured a new shape's CUDA graphs, "graphed_steps" the steps run
+# through the graphs, "eager_steps" the steps of the eager loop
+DECODE_STEPS: Dict[str, int] = {"captures": 0, "graphed_steps": 0,
+                                "eager_steps": 0}
+# graph sets one search function keeps (a set per batch size, model and
+# trie); beyond it the least recently used goes
+GRAPH_SETS = 6
 
 
 @dataclasses.dataclass
@@ -171,6 +186,67 @@ def _grow(buf: torch.Tensor, dim: int, size: int) -> torch.Tensor:
     return grown
 
 
+class _Pieces:
+    """The CUDA graphs of one search shape: each chain of plain-torch work
+    between two hand-written kernels is captured on its first call and
+    replayed after, on the caller's stream. The captures run on a side
+    stream, after one eager pass of the pieces there (``warm``: cuBLAS sets
+    up its workspace for that stream outside a capture), into one memory
+    pool that the pieces share, since they replay one after another on one
+    stream. Without ``capture`` each call runs its piece."""
+
+    def __init__(self, device, capture: bool):
+        self.capture = capture
+        self.graphs = {}
+        if capture:
+            self.pool = torch.cuda.graph_pool_handle()
+            self.side = torch.cuda.Stream(device)
+            self.done = torch.cuda.Event()
+
+    def warm(self, fn):
+        if not self.capture:
+            return
+        cur = torch.cuda.current_stream()
+        self.side.wait_stream(cur)
+        with torch.cuda.stream(self.side):
+            fn()
+        cur.wait_stream(self.side)
+
+    def __call__(self, name, fn, *args):
+        if not self.capture:
+            fn(*args)
+            return
+        g = self.graphs.get(name)
+        if g is None:
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(self.side):
+                # thread_local: another thread (the serving engine's
+                # completer) may copy results while this one captures
+                g.capture_begin(pool=self.pool,
+                                capture_error_mode="thread_local")
+                try:
+                    fn(*args)
+                finally:
+                    g.capture_end()
+            self.graphs[name] = g
+        g.replay()
+
+    def begin(self):
+        """Order this search after the last one on these buffers, which
+        another stream may have run."""
+        if self.capture:
+            torch.cuda.current_stream().wait_event(self.done)
+
+    def end(self):
+        if self.capture:
+            self.done.record()
+
+    def drop(self):
+        """Wait for the device before these graphs and their pool go."""
+        if self.capture:
+            torch.cuda.synchronize(self.side.device)
+
+
 def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
                         constrained: bool = True,
                         max_steps: Optional[int] = None,
@@ -186,7 +262,7 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
                         qfuse: bool = True,
                         fused_kvg: bool = False,
                         mxu_math: bool = False,
-                        device=None):
+                        device=None, _graphs: Optional[bool] = None):
     """Build a beam-search function.
 
     Returns fn(model, input_ids, attention_mask, tables) -> (scores [B, N]
@@ -242,6 +318,37 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
     reference's default for use_pallas_gather follows the backend, the
     port's is True everywhere, so a call without it keeps its kernel
     path.
+
+    The megarow search runs its step in pieces (Decoder.megarow_*): the
+    plain-torch chains between the hand-written kernels, K1, K2 and K3
+    launched between them through their usual entries, so their launch
+    counters and wrappers see every call. The pieces are a prologue
+    (encoder, cross-attention K/V, the biases, the int8 FFN weights, the
+    beams' start), a head a step (position input, layer 0's projections),
+    one piece a layer boundary (the rest of layer l, layer l+1's
+    projections) and a tail a step (the last layer, the head over the
+    codebook, ``select``). On a CUDA device outside tensor parallelism
+    (``cfg.t5.tp_axis`` None: its layers all-reduce) they replay as CUDA
+    graphs, so the host issues ~28 actions a step instead of ~765
+    launches; elsewhere (the CPU, TP) they run as they are. The graphs of
+    a batch size are captured on its first search, for that model's
+    parameters and those trie tables (another model or trie, or the same
+    tensors moved, captures anew; a model with a patched or hooked
+    module's forward runs its pieces uncaptured); the search that
+    captures takes about as long on the host as an uncaptured one, and a
+    capture that fails raises. A function keeps GRAPH_SETS such sets,
+    least recently used out, and refers to the model and the tables only
+    weakly: a set of a freed model or tables goes at the next search. A
+    set holds static buffers of about B*N*(10*d_model + L*w + 8*M) bytes
+    at 16-bit activations (the hidden state, q, K|V, the attention, and
+    this step's rows of every layer, w bytes each), and a memory pool
+    with the cross-attention K/V and its pieces' temporaries: at t5-base
+    on an H100, 297 MB in all at B=8, N=1000 with the int4 cache, and
+    42 MB to 1,029 MB at N=100 with the exact bf16 cache from B=1 to
+    B=64. Searches return fresh tensors, so two may be in flight.
+    ``DECODE_STEPS`` counts captures and graphed and eager steps.
+    ``_graphs`` (tests): False never keeps a set, True keeps them on any
+    device (captured on a card only).
     """
     M = max_steps or cfg.M
     N = num_beams
@@ -307,6 +414,11 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
     # the reference's XLA path: slot t written before the attention
     write_attend = not deferred and not use_pallas_gather
     dev = resolve_device(device)
+    if _graphs is None:
+        _graphs = (megarow and dev.type == "cuda"
+                   and cfg.t5.tp_axis is None)
+    elif _graphs and not megarow:
+        raise ValueError("graph sets are of the megarow path only")
 
     def select(beam_scores, state, codes, logits, tables, t: int):
         """Trie mask + scored top-k + beam bookkeeping for one step."""
@@ -336,6 +448,24 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
         codes[:, :, t] = tok
         return new_scores, new_state, tok, codes, src
 
+    def first_rows(B, rw, cache_dtype):
+        """The t=0 placeholder of the deferred paths' pending rows of step
+        t-1 (kvg), in current beam order (un-permuted with fused_kvg):
+        cache-layout rows of ``rw`` on the megarow path with an exact
+        cache, QFUSE or kvg_quant_xla, and on the deferred path with
+        kvg_quant_xla, else exact K|V rows. It is never read unmasked
+        (megarow inserts it at slot 0, rewritten at t=1; K4 inserts
+        nothing at t=0); zeros keep it finite."""
+        if (megarow and (quant is None or mr_qfuse or mr_quant_xla)
+                or kvg_q8):
+            return torch.zeros(B, N, L * rw, dtype=cache_dtype, device=dev)
+        return torch.zeros(B, N, L * 2 * cfg.t5.inner_dim, dtype=dtype,
+                           device=dev)
+
+    # the kept graph sets (graph_set), by graph_key
+    graph_sets: "collections.OrderedDict" = collections.OrderedDict()
+    graph_lock = threading.Lock()
+
     @torch.inference_mode()
     def run(model, input_ids, attention_mask, tables):
         if model.dtype != dtype:
@@ -343,6 +473,11 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
                              f"was built for {dtype}")
         ids = torch.as_tensor(input_ids, device=dev)
         mask = torch.as_tensor(attention_mask, device=dev)
+        if megarow:
+            return run_megarow(model, ids, mask, tables)
+        return run_eager(model, ids, mask, tables)
+
+    def run_eager(model, ids, mask, tables):
         B = ids.shape[0]
         enc = model.encode(ids, mask)
         cross_kv = model.decoder.precompute_cross_kv(enc)
@@ -358,13 +493,10 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
         tokens = torch.zeros(B, N, dtype=torch.long, device=dev)
         codes = torch.zeros(B, N, M, dtype=torch.long, device=dev)
         # the cache pair: ``cache`` holds the current beam order (for the
-        # deferred paths: the previous step's), ``spare`` receives the
+        # deferred path: the previous step's), ``spare`` receives the
         # reorder; they swap every step
         dec = model.decoder
-        if megarow:
-            cache = dec.init_cache_megarow(B, N, bounds[0],
-                                           quantized=quant or False)
-        elif deferred:
+        if deferred:
             cache = dec.init_cache_merged(B, N, bounds[0],
                                           quantized=quant or False)
         else:
@@ -373,31 +505,13 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
         slot_axis = cache.dim() - 2
         src_prev = torch.arange(N, dtype=torch.int32,
                                 device=dev).expand(B, N).contiguous()
-        # the deferred paths' pending rows of step t-1, in current beam
-        # order (un-permuted with fused_kvg): cache-layout rows on the
-        # megarow path with an exact cache, QFUSE or kvg_quant_xla, and on
-        # the deferred path with kvg_quant_xla, else exact K|V rows. The
-        # t=0 placeholder is never read unmasked (megarow inserts it at
-        # slot 0, rewritten at t=1; K4 inserts nothing at t=0); zeros keep
-        # it finite.
-        if (megarow and (quant is None or mr_qfuse or mr_quant_xla)
-                or kvg_q8):
-            kvg = torch.zeros(B, N, L * cache.shape[-1], dtype=cache.dtype,
-                              device=dev)
-        else:
-            kvg = torch.zeros(B, N, L * 2 * cfg.t5.inner_dim, dtype=dtype,
-                              device=dev)
+        kvg = first_rows(B, cache.shape[-1], cache.dtype)
         lo = 0
         for s, hi in enumerate(bounds):
             for t in range(lo, hi):
+                DECODE_STEPS["eager_steps"] += 1
                 last = t + 1 == M          # the last step's rows are dead
-                if megarow:
-                    logits, spare, kv_new = model.decode_step_megarow(
-                        tokens, cache, spare, src_prev, kvg, *ctx, t,
-                        emit_quant=quant if mr_qfuse else None, ffn_q=ffn_q,
-                        fused_kvg=mr_fused, mxu_math=mr_mxu)
-                    cache, spare = spare, cache
-                elif deferred:
+                if deferred:
                     logits, spare, kv_new = model.decode_step_deferred(
                         tokens, cache, spare, src_prev, kvg, *ctx, t,
                         write_back=not last, ffn_q=ffn_q)
@@ -416,11 +530,10 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
                     continue
                 if deferred:
                     src_prev = src
-                    if kvg_q8 or mr_quant_xla:
+                    if kvg_q8:
                         kv_new = quantize_plain(
                             kv_new.view(B, N, L, -1), H).view(B, N, -1)
-                    kvg = kv_new if mr_fused else beam_gather_rows(kv_new,
-                                                                   src)
+                    kvg = beam_gather_rows(kv_new, src)
                 else:
                     spare = _reorder_cache(cache, src, kv_new, t, spare)
                     cache, spare = spare, cache
@@ -432,6 +545,206 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
             lo = hi
         return beam_scores, codes, state
 
+    def run_megarow(model, ids, mask, tables):
+        """The megarow search through a graph set: a kept one where graphs
+        engage (captured on a card), else one made for this call."""
+        key = graph_key(model, ids, mask, tables) if _graphs else None
+        if key is None:
+            return search(graph_set(model, tables, ids, mask, kept=False),
+                          model, tables, ids, mask)
+        with graph_lock:
+            for k in [k for k, e in graph_sets.items()
+                      if not holds(e, model, tables, k == key)]:
+                graph_sets.pop(k).pieces.drop()
+            e = graph_sets.get(key)
+            if e is None:
+                e = graph_set(model, tables, ids, mask, kept=True)
+                DECODE_STEPS["captures"] += 1
+                graph_sets[key] = e
+                while len(graph_sets) > GRAPH_SETS:
+                    graph_sets.popitem(last=False)[1].pieces.drop()
+            else:
+                graph_sets.move_to_end(key)
+            try:
+                return search(e, model, tables, ids, mask)
+            except BaseException:
+                del graph_sets[key]
+                raise
+
+    def graph_key(model, ids, mask, tables):
+        """A graph set's key: the shapes, and the addresses and shapes of
+        the model's parameters and buffers and of the trie tables, which
+        its graphs read. None for a model with a module whose forward is
+        patched or hooked (as parallel/reference.py::split_sums patches
+        them): graphs hold the code that ran when they were captured."""
+        ptrs = []
+        for m in model.modules():
+            if ("forward" in vars(m) or m._forward_hooks
+                    or m._forward_pre_hooks):
+                return None
+            ptrs.extend((x.data_ptr(), x.shape)
+                        for x in (*m._parameters.values(),
+                                  *m._buffers.values()) if x is not None)
+        return (tuple(ids.shape), ids.dtype, mask.dtype, tuple(ptrs),
+                tuple((x.data_ptr(), x.shape) for x in tables))
+
+    def holds(e, model, tables, this: bool):
+        """Whether kept set e may stay: its model and tables are alive,
+        and, for this search's key, are this model and these tables (not
+        others that came to the same addresses)."""
+        refs = (e.model, *e.tables)
+        if this:
+            return all(r() is x for r, x in zip(refs, (model, *tables)))
+        return all(r() is not None for r in refs)
+
+    def graph_set(model, tables, ids, mask, kept: bool):
+        """A shape's static buffers and its pieces (a namespace that
+        refers to the model and the tables only weakly); a kept set's
+        pieces are warmed here and captured by its first search on a
+        card."""
+        dec = model.decoder
+        B, S = ids.shape
+        d, F = cfg.t5.d_model, cfg.t5.inner_dim
+        rw, cdt = dec._cache_rows(quant or False)
+
+        def zeros(*shape, dt=dtype):
+            return torch.zeros(*shape, dtype=dt, device=dev)
+
+        e = types.SimpleNamespace()
+        e.model = weakref.ref(model)
+        e.tables = [weakref.ref(x) for x in tables]
+        e.steps = "graphed_steps" if kept else "eager_steps"
+        e.ids, e.mask = zeros(B, S, dt=ids.dtype), zeros(B, S, dt=mask.dtype)
+        e.scores, e.codes = zeros(B, N, dt=torch.float32), zeros(
+            B, N, M, dt=torch.long)
+        e.state, e.tokens = (zeros(B, N, dt=torch.long) for _ in range(2))
+        e.src = zeros(B, N, dt=torch.int32)
+        e.src0 = torch.arange(N, dtype=torch.int32,
+                              device=dev).expand(B, N).contiguous()
+        e.x = zeros(B, N, d)
+        e.q, e.attn = zeros(B, N, F), zeros(B, N, F)
+        e.kvf = zeros(B, N, 2 * F)
+        # K2's outputs, which the next piece reads
+        e.kvq = zeros(B, N, rw, dt=cdt) if mr_qfuse else None
+        e.k2_out = (e.attn, e.kvq) if mr_qfuse else e.attn
+        # this step's rows of every layer, stacked
+        e.kv_new = (zeros(B, N, L, rw, dt=cdt) if mr_qfuse
+                    else zeros(B, N, L, 2 * F))
+        e.kv_quant = zeros(B, N, L * rw, dt=cdt) if mr_quant_xla else None
+        e.kvg0 = first_rows(B, rw, cdt)
+        e.pieces = _Pieces(dev, capture=kept and dev.type == "cuda")
+
+        def warm():
+            prologue(e, model)
+            head(e, model, 0)
+            for l in range(L - 1):
+                boundary(e, model, l)
+            tail(e, model, tables, 0)
+
+        e.pieces.warm(warm)
+        return e
+
+    # The pieces of the megarow search. They read and write set e's
+    # buffers and take the model and the tables as arguments, so that a
+    # kept set holds neither.
+
+    def prologue(e, model):
+        dec = model.decoder
+        enc = model.encode(e.ids, e.mask)
+        e.cross_kv = dec.precompute_cross_kv(enc)
+        e.enc_bias = torch.where(e.mask > 0, 0.0, NEG_INF).float()
+        e.hist, e.new = dec.step_bias_tables(dec.full_self_bias(bounds[-1]))
+        e.ffn_q = quantize_ffn(model.state_dict(), L) if ffn_int8 else None
+        e.scores.fill_(NEG_INF)
+        e.scores[:, 0] = 0.0
+        e.state.zero_()
+        e.tokens.zero_()
+        e.codes.zero_()
+
+    def project(e, model, l, x):
+        q, _ = model.decoder.megarow_qkv(l, x, out=e.kvf)
+        e.q.copy_(q)
+
+    def finish(e, model, l):
+        e.kv_new[:, :, l].copy_(e.kvq if mr_qfuse else e.kvf)
+        return model.decoder.megarow_finish(l, e.x, e.attn, e.cross_kv,
+                                            e.enc_bias, e.ffn_q)
+
+    def head(e, model, t):
+        x = model._step_input(e.tokens, t)
+        e.x.copy_(x)
+        project(e, model, 0, x)
+
+    def boundary(e, model, l):
+        x = finish(e, model, l)
+        e.x.copy_(x)
+        project(e, model, l + 1, x)
+
+    def tail(e, model, tables, t):
+        logits = model._step_logits(
+            model.decoder.final_norm(finish(e, model, L - 1)), t)
+        scores, state, tok, codes, src = select(e.scores, e.state, e.codes,
+                                                logits, tables, t)
+        e.scores.copy_(scores)
+        e.state.copy_(state)
+        e.tokens.copy_(tok)
+        e.codes.copy_(codes)
+        e.src.copy_(src)
+        if mr_quant_xla and t + 1 < M:
+            e.kv_quant.copy_(quantize_plain(e.kv_new, H).view(
+                e.kv_quant.shape))
+
+    def search(e, model, tables, ids, mask):
+        """The megarow search through set e's pieces, with K1 (the pending
+        beam reorder and the slot t-1 insert), K2 (each layer's attention
+        over the reordered cache) and K3 (the gather of step t-1's rows,
+        unless K1 gathers them: fused_kvg) launched eagerly between
+        them."""
+        dec = model.decoder
+        B = ids.shape[0]
+        piece = e.pieces
+        piece.begin()
+        e.ids.copy_(ids)
+        e.mask.copy_(mask)
+        piece("prologue", prologue, e, model)
+        # the cache pair: ``cache`` holds the previous step's beam order,
+        # K1 reorders it into ``spare``; they swap every step
+        cache = dec.init_cache_megarow(B, N, bounds[0],
+                                       quantized=quant or False)
+        spare = torch.zeros_like(cache)
+        src_prev, kvg = e.src0, e.kvg0
+        lo = 0
+        for s, hi in enumerate(bounds):
+            for t in range(lo, hi):
+                piece(("head", t), head, e, model, t)
+                dec.megarow_reorder(kvg, cache, spare, src_prev, t, mr_fused)
+                for l in range(L):
+                    dec.megarow_attend(e.q, e.kvf, spare, l,
+                                       e.hist[t, :spare.shape[3]], e.new[t],
+                                       quant if mr_qfuse else None, mr_mxu,
+                                       out=e.k2_out)
+                    if l + 1 < L:
+                        piece(("boundary", l), boundary, e, model, l)
+                piece(("tail", t), tail, e, model, tables, t)
+                cache, spare = spare, cache
+                DECODE_STEPS[e.steps] += 1
+                if t + 1 == M:          # the last step's rows are dead
+                    continue
+                src_prev = e.src
+                rows = (e.kv_quant if mr_quant_xla
+                        else e.kv_new.view(B, N, -1))
+                kvg = rows if mr_fused else beam_gather_rows(rows, e.src)
+            if s + 1 < len(bounds):
+                # grow both buffers to the next segment's slot count
+                del spare
+                cache = _grow(cache, cache.dim() - 2, bounds[s + 1])
+                spare = torch.zeros_like(cache)
+            lo = hi
+        out = e.scores.clone(), e.codes.clone(), e.state.clone()
+        piece.end()
+        return out
+
+    run.graphed = bool(_graphs)
     return run
 
 

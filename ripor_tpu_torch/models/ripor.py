@@ -195,20 +195,6 @@ class RiporModel(nn.Module):
             logits = torch.log_softmax(logits, dim=-1)
         return logits
 
-    def decode_step_megarow(self, tokens, cache_src, cache_dst, src, kvg,
-                            cross_kv: CrossKV, enc_bias, self_bias, t: int,
-                            emit_quant: Optional[str] = None, ffn_q=None,
-                            fused_kvg: bool = False, mxu_math: bool = False):
-        """One beam decode step over the megarow cache
-        (Decoder.decode_step_megarow, whose arguments these are). tokens:
-        [B, N] codes chosen at step t-1 (ignored at t == 0). Returns
-        (logits [B, N, K] float32 for position t, new cache, kv_new)."""
-        hidden, new_cache, kv_new = self.decoder.decode_step_megarow(
-            self._step_input(tokens, t), cache_src, cache_dst, src, kvg,
-            cross_kv, enc_bias, self_bias, t, emit_quant=emit_quant,
-            ffn_q=ffn_q, fused_kvg=fused_kvg, mxu_math=mxu_math)
-        return self._step_logits(hidden, t), new_cache, kv_new
-
     def decode_step_deferred(self, tokens, cache_src, cache_dst, src, kvg,
                              cross_kv: CrossKV, enc_bias, self_bias, t: int,
                              write_back: bool = True, ffn_q=None):

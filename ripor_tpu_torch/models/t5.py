@@ -286,48 +286,66 @@ class Decoder(nn.Module):
         bias_new = bias_row[:, t][None, :].contiguous()         # [1, H]
         return bias_hist, bias_new
 
-    def decode_step_megarow(self, x, cache_src, cache_dst, src, kvg,
-                            cross_kv: CrossKV, enc_bias, self_bias_full,
-                            t: int, emit_quant: Optional[str] = None,
-                            ffn_q=None, fused_kvg: bool = False,
-                            mxu_math: bool = False):
-        """One decode step over the megarow cache: K1 completes the pending
-        beam reorder (and the slot t-1 insert) from ``cache_src`` into
-        ``cache_dst``, then each layer runs K2 over its reordered rows.
+    def step_bias_tables(self, self_bias_full):
+        """_step_biases of every position at once: (hist [M, M, H], new
+        [M, 1, H]) with _step_biases(self_bias_full, t, Mc) equal to
+        (hist[t, :Mc], new[t]), both contiguous."""
+        M = self_bias_full.shape[1]
+        key_pos = torch.arange(M, device=self_bias_full.device)
+        masked = torch.where(key_pos[None, :] < key_pos[:, None], 0.0,
+                             NEG_INF)                           # [M, M]
+        hist = (self_bias_full + masked[None]).permute(1, 2, 0).contiguous()
+        new = torch.diagonal(self_bias_full, dim1=1, dim2=2).T.contiguous()
+        return hist, new[:, None, :]
 
-        x: [B, N, d] position-t input embeddings (current beams);
+    # The megarow decode step, in the pieces the beam search calls one by
+    # one (decode/beam.py, which replays the plain-torch ones as CUDA
+    # graphs): K1, then for each layer its projections, K2 and the rest of
+    # the layer; the last layer's output goes through final_norm. K1 and
+    # K2 launch through this module's names, which portbench/profiling.py
+    # wraps to count their calls.
+
+    def megarow_reorder(self, kvg, cache_src, cache_dst, src, t: int,
+                        fused_kvg: bool = False):
+        """K1: completes the pending beam reorder and the slot t-1 insert
+        from ``cache_src`` into ``cache_dst`` (returned).
+
         src: [B, N] int32 current beam -> previous row; kvg: [B, N, L*w]
-        step t-1's rows: cache-layout rows, or exact [2F] rows that K1
-        quantizes on insert into a quantized cache (K1'); in current beam
-        order, or un-permuted with ``fused_kvg`` (K1'' gathers them by
-        src); t: Python int.
-        Returns (hidden [B, N, d], cache_dst, kv_new [B, N, L*w]) where
-        kv_new stacks this step's rows per layer: exact [2F] rows (also on
-        a quantized cache), or with ``emit_quant`` the cache-layout rows
-        K2 emitted (QFUSE). ``mxu_math``: K2' on a quantized cache.
-        ``ffn_q``: optional stacked int8 FFN weights (ops/int8_ffn.py
-        quantize_ffn), layer l taking index l of each."""
-        bias_hist, bias_new = self._step_biases(self_bias_full, t,
-                                                cache_src.shape[3])
-        cache = reorder_cache_all(kvg, cache_src, cache_dst, src, t,
-                                  self.cfg.num_heads, fused_kvg=fused_kvg)
-        kvnews = []
-        for l, (layer, (enc_k, enc_v)) in enumerate(zip(self.layers,
-                                                         cross_kv)):
-            q, k, v = layer.step_qkv(x)
-            kvf = torch.cat([k, v], dim=-1)
-            attn = step_attention_seq(q, kvf, cache, l, bias_hist, bias_new,
-                                      self.cfg.num_heads,
-                                      emit_quant=emit_quant,
-                                      mxu_math=mxu_math)
-            if emit_quant:
-                attn, kvf = attn
-            kvnews.append(kvf)
-            x = layer.step_finish_with_attn(x, attn, enc_k, enc_v, enc_bias,
-                                            _layer_ffn_q(ffn_q, l))
-        kv_new = torch.stack(kvnews, dim=2).reshape(x.shape[0], x.shape[1],
-                                                    -1)
-        return self.final_norm(x), cache, kv_new
+        step t-1's rows of every layer: cache-layout rows, or exact [2F]
+        rows that K1 quantizes on insert into a quantized cache (K1'); in
+        current beam order, or un-permuted with ``fused_kvg`` (K1'' gathers
+        them by src); t: Python int."""
+        return reorder_cache_all(kvg, cache_src, cache_dst, src, t,
+                                 self.cfg.num_heads, fused_kvg=fused_kvg)
+
+    def megarow_qkv(self, l: int, x, out=None):
+        """Layer l's projections of position t from x [B, N, d]: q
+        [B, N, F] and its K|V row kvf [B, N, 2F] (written into ``out`` if
+        given)."""
+        q, k, v = self.layers[l].step_qkv(x)
+        return q, torch.cat([k, v], dim=-1, out=out)
+
+    def megarow_attend(self, q, kvf, cache, l: int, bias_hist, bias_new,
+                       emit_quant: Optional[str] = None,
+                       mxu_math: bool = False, out=None):
+        """K2 over layer l of the reordered cache: attn, or with
+        ``emit_quant`` (attn, kvq), kvq being kvf in cache-row layout
+        (QFUSE). ``mxu_math``: K2' on a quantized cache. ``out`` as
+        ops/megarow.py::step_attention_seq's. The biases are
+        step_bias_tables' rows of position t."""
+        return step_attention_seq(q, kvf, cache, l, bias_hist, bias_new,
+                                  self.cfg.num_heads, emit_quant=emit_quant,
+                                  mxu_math=mxu_math, out=out)
+
+    def megarow_finish(self, l: int, x, attn, cross_kv: CrossKV, enc_bias,
+                       ffn_q=None):
+        """Layer l after its self-attention: output projection,
+        cross-attention and FFN. ``ffn_q``: optional stacked int8 FFN
+        weights (ops/int8_ffn.py quantize_ffn), layer l taking index l of
+        each."""
+        enc_k, enc_v = cross_kv[l]
+        return self.layers[l].step_finish_with_attn(
+            x, attn, enc_k, enc_v, enc_bias, _layer_ffn_q(ffn_q, l))
 
     def decode_step_deferred(self, x, cache_src, cache_dst, src, kvg,
                              cross_kv: CrossKV, enc_bias, self_bias_full,
@@ -341,7 +359,7 @@ class Decoder(nn.Module):
         x: [B, N, d]; cache_src/cache_dst: [L, B, N, Mc, RW] pair
         (init_cache_merged); src: [B, N] int32; kvg: [B, N, L*2F] step
         t-1's exact K|V rows in current beam order (or, for an int8 cache,
-        [B, N, L*RW] int8 rows); ``ffn_q`` as in decode_step_megarow.
+        [B, N, L*RW] int8 rows); ``ffn_q`` as in megarow_finish.
         Returns (hidden, cache_dst, kv_new [B, N, L*2F])."""
         bias_hist, bias_new = self._step_biases(self_bias_full, t,
                                                 cache_src.shape[3])

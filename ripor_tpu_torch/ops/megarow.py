@@ -149,8 +149,13 @@ def reorder_cache_all(kvg: torch.Tensor, cache_src: torch.Tensor,
 # K2: step_attention_seq
 # ---------------------------------------------------------------------------
 
+def _outs(out, emit_quant):
+    """K2's outputs as a tuple: (attn,), or (attn, kvq) with emit_quant."""
+    return tuple(out) if emit_quant else (out,)
+
+
 def _check_seq(q, kv_new, cache, layer, bias_hist, bias_new, num_heads,
-               emit_quant):
+               emit_quant, out=None):
     B, N, F = q.shape
     _, _, L, Mc, RW = cache.shape
     quant = cache_quant(cache, F)
@@ -171,21 +176,32 @@ def _check_seq(q, kv_new, cache, layer, bias_hist, bias_new, num_heads,
             f"bias_hist {tuple(bias_hist.shape)} != {(Mc, num_heads)}")
     require(tuple(bias_new.shape) == (1, num_heads),
             f"bias_new {tuple(bias_new.shape)} != {(1, num_heads)}")
+    if out is not None:
+        want = [((B, N, F), q.dtype), ((B, N, RW), torch.int8)]
+        outs = _outs(out, emit_quant)
+        require(len(outs) == (2 if emit_quant else 1)
+                and all(tuple(o.shape) == s and o.dtype == dt
+                        and o.is_contiguous()
+                        for o, (s, dt) in zip(outs, want)),
+                f"out must be attn {want[0]}"
+                + (f" and kvq {want[1]}" if emit_quant else "")
+                + ", contiguous")
     return quant
 
 
 def step_attention_seq_plain(q, kv_new, cache, layer: int, bias_hist,
                              bias_new, num_heads: int,
                              emit_quant: Optional[str] = None,
-                             mxu_math: bool = False):
+                             mxu_math: bool = False, out=None):
     """Plain version of K2: attend_plain over layer ``layer``'s rows (the
     reference math _seq_math / _seq_math_quant): the dot dtype is bf16 for
     quantized caches, else the cache dtype. With ``mxu_math`` on a
     quantized cache, K2' (_seq_math_quant_mxu): the p*v products are
     exact f32 products of the bf16 probabilities and the integer values;
-    on an exact cache ``mxu_math`` changes nothing, as in the reference."""
+    on an exact cache ``mxu_math`` changes nothing, as in the reference.
+    ``out`` as step_attention_seq's."""
     quant = _check_seq(q, kv_new, cache, layer, bias_hist, bias_new,
-                       num_heads, emit_quant)
+                       num_heads, emit_quant, out)
     F = q.shape[2]
     rows = cache[:, :, layer]                             # [B, N, Mc, RW]
     k_hist, v_hist, ek, ev = decode_rows(rows, F, num_heads, quant)
@@ -194,17 +210,23 @@ def step_attention_seq_plain(q, kv_new, cache, layer: int, bias_hist,
                         bias_hist, bias_new, num_heads, dot_dt, ek, ev,
                         exact_pv=mxu_math and quant is not None)
     if emit_quant == "int4":
-        return attn, quantize_rows_int4_plain(kv_new, num_heads)
-    if emit_quant == "int8":
-        return attn, quantize_rows_plain(kv_new, num_heads)
-    return attn
+        got = attn, quantize_rows_int4_plain(kv_new, num_heads)
+    elif emit_quant == "int8":
+        got = attn, quantize_rows_plain(kv_new, num_heads)
+    else:
+        got = attn
+    if out is None:
+        return got
+    for dst, x in zip(_outs(out, emit_quant), _outs(got, emit_quant)):
+        dst.copy_(x)
+    return out
 
 
 def step_attention_seq(q: torch.Tensor, kv_new: torch.Tensor,
                        cache: torch.Tensor, layer: int,
                        bias_hist: torch.Tensor, bias_new: torch.Tensor,
                        num_heads: int, emit_quant: Optional[str] = None,
-                       mxu_math: bool = False):
+                       mxu_math: bool = False, out=None):
     """One-position cached self-attention over the reordered megarow cache.
 
     q: [B, N, F]; kv_new: [B, N, 2F] position t's K|V (q's dtype);
@@ -214,13 +236,17 @@ def step_attention_seq(q: torch.Tensor, kv_new: torch.Tensor,
     ``emit_quant`` ("int8"/"int4", must match the cache) also kvq
     [B, N, RW] int8: kv_new in cache-row layout. ``mxu_math``: K2' on an
     int8/int4 cache (exact p*v products, step_attention_seq_plain); no
-    effect on an exact cache."""
+    effect on an exact cache. ``out``: buffers the outputs are written
+    into and returned as (attn, or (attn, kvq) with ``emit_quant``), for
+    a caller whose next reads are fixed addresses (the CUDA graphs of
+    decode/beam.py); None allocates them."""
     quant = _check_seq(q, kv_new, cache, layer, bias_hist, bias_new,
-                       num_heads, emit_quant)
+                       num_heads, emit_quant, out)
     mxu = bool(mxu_math) and quant is not None
     if device_kind(q, kv_new, cache, bias_hist, bias_new) == "cpu":
         return step_attention_seq_plain(q, kv_new, cache, layer, bias_hist,
-                                        bias_new, num_heads, emit_quant, mxu)
+                                        bias_new, num_heads, emit_quant, mxu,
+                                        out)
     B, N, F = q.shape
     _, _, L, Mc, RW = cache.shape
     require(q.dtype in (torch.bfloat16, torch.float32)
@@ -236,9 +262,14 @@ def step_attention_seq(q: torch.Tensor, kv_new: torch.Tensor,
             "step_attention_seq needs contiguous tensors")
     plan = stage_plan(quant, cache.element_size(), q.element_size(), Mc, F,
                       num_heads)
-    attn = torch.empty_like(q)
-    kvq = (torch.empty(B, N, RW, dtype=torch.int8, device=q.device)
-           if emit_quant else None)
+    if out is None:
+        attn = torch.empty_like(q)
+        kvq = (torch.empty(B, N, RW, dtype=torch.int8, device=q.device)
+               if emit_quant else None)
+    elif emit_quant:
+        attn, kvq = out
+    else:
+        attn, kvq = out, None
     fn = kernel_fn("step_attention_seq", "step_attention_seq", 7, 14)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), kv_new.data_ptr(), cache.data_ptr(),

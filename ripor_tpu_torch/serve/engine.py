@@ -512,6 +512,13 @@ class RetrievalEngine(BaseEngine):
         scores, codes, state = self._fn(self._model, ids, mask, self._tables)
         return scores, state
 
+    def stats(self) -> Dict[str, object]:
+        """BaseEngine.stats, and ``decode_steps``: the process's searches'
+        graph captures and graphed and eager steps
+        (decode/beam.py::DECODE_STEPS)."""
+        from ripor_tpu_torch.decode.beam import DECODE_STEPS
+        return dict(super().stats(), decode_steps=dict(DECODE_STEPS))
+
     def _finish(self, handle, n: int):
         """Copy the results to the host (waits for the device) + trie
         group expansion per live query."""
