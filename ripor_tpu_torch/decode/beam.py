@@ -326,10 +326,14 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
     (encoder, cross-attention K/V, the biases, the int8 FFN weights, the
     beams' start), a head a step (position input, layer 0's projections),
     one piece a layer boundary (the rest of layer l, layer l+1's
-    projections) and a tail a step (the last layer, the head over the
-    codebook, ``select``). On a CUDA device outside tensor parallelism
+    projections), and three a step after the last layer: its tail (the
+    rest of the last layer), the logits (the final norm and the head over
+    the codebook, into a static float32 [B, N, K] buffer) and ``select``
+    (the trie mask, the top-k and the beams' bookkeeping), the last two
+    inside ``torch.profiler.record_function`` spans ``codebook_head`` and
+    ``select``. On a CUDA device outside tensor parallelism
     (``cfg.t5.tp_axis`` None: its layers all-reduce) they replay as CUDA
-    graphs, so the host issues ~28 actions a step instead of ~765
+    graphs, so the host issues ~30 actions a step instead of ~765
     launches; elsewhere (the CPU, TP) they run as they are. The graphs of
     a batch size are captured on its first search, for that model's
     parameters and those trie tables (another model or trie, or the same
@@ -339,13 +343,15 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
     capture that fails raises. A function keeps GRAPH_SETS such sets,
     least recently used out, and refers to the model and the tables only
     weakly: a set of a freed model or tables goes at the next search. A
-    set holds static buffers of about B*N*(10*d_model + L*w + 8*M) bytes
-    at 16-bit activations (the hidden state, q, K|V, the attention, and
-    this step's rows of every layer, w bytes each), and a memory pool
-    with the cross-attention K/V and its pieces' temporaries: at t5-base
-    on an H100, 297 MB in all at B=8, N=1000 with the int4 cache, and
-    42 MB to 1,029 MB at N=100 with the exact bf16 cache from B=1 to
-    B=64. Searches return fresh tensors, so two may be in flight.
+    set holds static buffers of about B*N*(10*d_model + L*w + 8*M + 4*K)
+    bytes at 16-bit activations (the hidden state, q, K|V, the attention,
+    this step's rows of every layer, w bytes each, and the logits), and a
+    memory pool with the cross-attention K/V and its pieces' temporaries:
+    at t5-base on an H100, 297 MB in all at B=8, N=1000, K=256 with the
+    int4 cache, and 42 MB to 1,029 MB at N=100 with the exact bf16 cache
+    from B=1 to B=64, before the logits buffer (8.2 MB more at B=8,
+    N=1000, K=256). Searches return fresh tensors, so two may be in
+    flight.
     ``DECODE_STEPS`` counts captures and graphed and eager steps.
     ``_graphs`` (tests): False never keeps a set, True keeps them on any
     device (captured on a card only).
@@ -622,6 +628,7 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
         e.src0 = torch.arange(N, dtype=torch.int32,
                               device=dev).expand(B, N).contiguous()
         e.x = zeros(B, N, d)
+        e.logits = zeros(B, N, K, dt=torch.float32)
         e.q, e.attn = zeros(B, N, F), zeros(B, N, F)
         e.kvf = zeros(B, N, 2 * F)
         # K2's outputs, which the next piece reads
@@ -639,7 +646,9 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
             head(e, model, 0)
             for l in range(L - 1):
                 boundary(e, model, l)
-            tail(e, model, tables, 0)
+            tail(e, model, 0)
+            step_logits(e, model, 0)
+            step_select(e, tables, 0)
 
         e.pieces.warm(warm)
         return e
@@ -680,19 +689,23 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
         e.x.copy_(x)
         project(e, model, l + 1, x)
 
-    def tail(e, model, tables, t):
-        logits = model._step_logits(
-            model.decoder.final_norm(finish(e, model, L - 1)), t)
+    def tail(e, model, t):
+        e.x.copy_(finish(e, model, L - 1))
+        if mr_quant_xla and t + 1 < M:
+            e.kv_quant.copy_(quantize_plain(e.kv_new, H).view(
+                e.kv_quant.shape))
+
+    def step_logits(e, model, t):
+        model._step_logits(model.decoder.final_norm(e.x), t, out=e.logits)
+
+    def step_select(e, tables, t):
         scores, state, tok, codes, src = select(e.scores, e.state, e.codes,
-                                                logits, tables, t)
+                                                e.logits, tables, t)
         e.scores.copy_(scores)
         e.state.copy_(state)
         e.tokens.copy_(tok)
         e.codes.copy_(codes)
         e.src.copy_(src)
-        if mr_quant_xla and t + 1 < M:
-            e.kv_quant.copy_(quantize_plain(e.kv_new, H).view(
-                e.kv_quant.shape))
 
     def search(e, model, tables, ids, mask):
         """The megarow search through set e's pieces, with K1 (the pending
@@ -725,7 +738,11 @@ def make_beam_search_fn(cfg: RiporConfig, num_beams: int,
                                        out=e.k2_out)
                     if l + 1 < L:
                         piece(("boundary", l), boundary, e, model, l)
-                piece(("tail", t), tail, e, model, tables, t)
+                piece(("tail", t), tail, e, model, t)
+                with torch.profiler.record_function("codebook_head"):
+                    piece(("logits", t), step_logits, e, model, t)
+                with torch.profiler.record_function("select"):
+                    piece(("select", t), step_select, e, tables, t)
                 cache, spare = spare, cache
                 DECODE_STEPS[e.steps] += 1
                 if t + 1 == M:          # the last step's rows are dead

@@ -187,12 +187,14 @@ class RiporModel(nn.Module):
             return self.start_embed[None, None, :].expand(b, n, -1)
         return self.codebooks[t - 1][tokens]
 
-    def _step_logits(self, hidden, t: int):
-        """Position-t logits [B, N, K] float32 from the decoder output."""
-        logits = (self._maybe_scale(hidden).float()
-                  @ self._out_books()[t].float().T)
+    def _step_logits(self, hidden, t: int, out=None):
+        """Position-t logits [B, N, K] float32 from the decoder output,
+        written into ``out`` where it is given."""
+        logits = torch.matmul(self._maybe_scale(hidden).float(),
+                              self._out_books()[t].float().T, out=out)
         if self.cfg.apply_log_softmax:
-            logits = torch.log_softmax(logits, dim=-1)
+            lsm = torch.log_softmax(logits, dim=-1)
+            logits = lsm if out is None else out.copy_(lsm)
         return logits
 
     def decode_step_deferred(self, tokens, cache_src, cache_dst, src, kvg,

@@ -35,10 +35,13 @@ class TrieTables(NamedTuple):
     bits: "np.ndarray"          # uint32 [nodes, ceil(K/32)]
     node_base: "np.ndarray"     # int32 [nodes + 1]
     edge_child: "np.ndarray"    # int32 [E]
-    # narrowest uint dtype that holds K-1 (uint8 for K<=256): at 8.8M docs
-    # this [G, M] table is the dominant HBM term (int32 would be 1.1 GB at
-    # M=32; uint8 is 282 MB) and it competes with the int8 KV cache for
-    # headroom (SURVEY §7.3). Consumers cast the gathered scalar up.
+    # numpy: the narrowest uint dtype that holds K-1 (uint8 for K<=256),
+    # which host code and the native extension read. On the device
+    # (tables_to_torch) uint8 for K<=256, else int16 or int32: CUDA
+    # indexes no uint16 tensor. At 8.8M docs this [G, M] table is the
+    # dominant HBM term (int32 would be 1.1 GB at M=32; uint8 is 282 MB)
+    # and it competes with the KV cache for headroom (SURVEY §7.3).
+    # Consumers cast the gathered scalar up.
     unique_codes: "np.ndarray"  # uint8/uint16/int32 [G, M]
 
 
@@ -83,10 +86,11 @@ def tables_to_torch(tables: TrieTables, device) -> TrieTables:
     ``bits`` widens uint32 -> int64: torch's uint32 support is thin (no
     shifts or bitwise ops on every backend), and the 32 payload bits sit
     in the low half of an int64 with room for the SWAR popcount's
-    multiply. ``node_base`` widens to int64 so it indexes directly;
-    ``unique_codes`` keeps its narrow dtype (uint8 for K <= 256) and the
-    decoder casts the gathered codes up."""
+    multiply. ``node_base`` widens to int64 so it indexes directly.
+    ``unique_codes`` takes device_code_dtype's dtype for the codebook size
+    that ``bits`` holds, and the decoder casts the gathered codes up."""
     import torch
+    code_dt = device_code_dtype(32 * np.shape(tables.bits)[1])
     return TrieTables(
         bits=torch.as_tensor(np.asarray(tables.bits).astype(np.int64),
                              device=device),
@@ -94,5 +98,14 @@ def tables_to_torch(tables: TrieTables, device) -> TrieTables:
             np.asarray(tables.node_base).astype(np.int64), device=device),
         edge_child=torch.as_tensor(
             np.asarray(tables.edge_child).astype(np.int32), device=device),
-        unique_codes=torch.as_tensor(np.asarray(tables.unique_codes),
-                                     device=device))
+        unique_codes=torch.as_tensor(
+            np.asarray(tables.unique_codes).astype(code_dt), device=device))
+
+
+def device_code_dtype(K: int):
+    """The narrowest dtype that holds codes below ``K`` and that CUDA
+    indexes: uint8 for K <= 256, int16 for K <= 32,768, int32 above (CUDA
+    indexes no uint16 tensor). ``tables_to_torch`` passes 32 times the
+    bitmask's words, which crosses 256 and 32,768 where K does."""
+    return (np.uint8 if K <= 256 else np.int16 if K <= 32768
+            else np.int32)

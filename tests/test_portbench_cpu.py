@@ -1,11 +1,12 @@
 """The benchmark's CPU tests (``portbench/tests/``), collected with the
 rest of ``tests/``: its files, its control, its fault cases, the plain
-reference model and the toy rehearsal. The ``cuda`` cases skip without a
-card."""
+reference model, the toy rehearsal and the 16x1024 geometry's cases. The
+``cuda`` cases skip without a card."""
 import importlib
 from pathlib import Path
 
 from portbench.tests.test_bench_files import *  # noqa: F401,F403
+from portbench.tests.test_codebook_1024 import *  # noqa: F401,F403
 from portbench.tests.test_control import *  # noqa: F401,F403
 from portbench.tests.test_faults import *  # noqa: F401,F403
 from portbench.tests.test_reference_model import *  # noqa: F401,F403

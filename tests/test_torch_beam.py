@@ -25,25 +25,47 @@ from torch_parity import port_model, port_state_dict, setup
 BEAMS = 5
 
 
-@pytest.fixture(scope="module")
-def world():
-    cfg, params, ids, mask, doc_codes = setup(M=6, K=8, n_docs=40)
+def _world(M, K, n_docs, segments, doc_codes=None):
+    cfg, params, ids, mask, codes = setup(M=M, K=K, n_docs=n_docs)
+    doc_codes = codes if doc_codes is None else doc_codes(codes)
     jtables = jax.tree.map(jnp.asarray, jax_tables(jax_build_trie(doc_codes,
-                                                                  8)))
-    trie = build_trie(doc_codes, 8)
+                                                                  K)))
+    trie = build_trie(doc_codes, K)
     tables = tables_to_torch(succinct_tables(trie), "cpu")
     ref = jax_make(cfg, BEAMS, constrained=True, dtype=jnp.float32,
                    use_pallas_gather=False, deferred=False)
     xla = tuple(np.asarray(a) for a in ref(params, jnp.asarray(ids),
                                            jnp.asarray(mask), jtables))
     return dict(cfg=cfg, params=params, ids=ids, mask=mask, trie=trie,
-                tables=tables, jtables=jtables, xla=xla,
+                tables=tables, jtables=jtables, xla=xla, segments=segments,
                 model=port_model(params, cfg))
+
+
+@pytest.fixture(scope="module")
+def world():
+    return _world(6, 8, 40, 3)
+
+
+def _branching(codes):
+    """The first two positions from 4 codes, so the beams branch there
+    before they follow the documents' own codes up to 1,023."""
+    codes = codes.copy()
+    codes[:, :2] %= 4
+    return codes
+
+
+@pytest.fixture(scope="module")
+def world_1024():
+    """RIPOR's 16x1024 DocID geometry at toy widths: the port's trie codes
+    are int16 on the device and a beam's bitmask row is 32 words; 4 cache
+    segments, as the engine runs M=16."""
+    return _world(16, 1024, 60, 4, _branching)
 
 
 def _jax_megarow(w, quant):
     fn = jax_make(w["cfg"], BEAMS, constrained=True, dtype=jnp.float32,
-                  use_pallas_gather=False, megarow=True, cache_segments=3,
+                  use_pallas_gather=False, megarow=True,
+                  cache_segments=w["segments"],
                   kv_cache_quant=quant)
     return tuple(np.asarray(a) for a in fn(w["params"], jnp.asarray(w["ids"]),
                                            jnp.asarray(w["mask"]),
@@ -52,7 +74,8 @@ def _jax_megarow(w, quant):
 
 def _port(w, quant, constrained=True):
     fn = make_beam_search_fn(w["cfg"], BEAMS, constrained=constrained,
-                             dtype=torch.float32, cache_segments=3,
+                             dtype=torch.float32,
+                             cache_segments=w["segments"],
                              kv_cache_quant=quant, device="cpu")
     return tuple(a.numpy() for a in fn(w["model"], w["ids"], w["mask"],
                                        w["tables"]))
@@ -89,17 +112,40 @@ def test_int8_cache_close(world, against):
     np.testing.assert_array_equal(c1[:, 0], c0[:, 0])
 
 
-@pytest.mark.parametrize("against", ["megarow", "xla"])
-def test_int4_cache_retrieval_robust(world, against):
-    s1, c1, _ = _port(world, "int4")
-    s0, c0, _ = (_jax_megarow(world, "int4") if against == "megarow"
-                 else world["xla"])
+def _assert_int4_robust(got, want):
+    s1, c1, _ = got
+    s0, c0, _ = want
     np.testing.assert_array_equal(c1[:, 0], c0[:, 0])
     for b in range(s0.shape[0]):
         set0 = {tuple(r) for r, sc in zip(c0[b], s0[b]) if sc > -1e29}
         set1 = {tuple(r) for r, sc in zip(c1[b], s1[b]) if sc > -1e29}
         assert len(set0 & set1) >= min(len(set0), len(set1)) - 1, \
             (b, set0, set1)
+
+
+@pytest.mark.parametrize("against", ["megarow", "xla"])
+def test_int4_cache_retrieval_robust(world, against):
+    _assert_int4_robust(_port(world, "int4"),
+                        _jax_megarow(world, "int4") if against == "megarow"
+                        else world["xla"])
+
+
+@pytest.mark.parametrize("against", ["megarow", "xla"])
+def test_exact_cache_matches_jax_at_1024_codes(world_1024, against):
+    w = world_1024
+    assert w["tables"].unique_codes.dtype == torch.int16
+    got = _port(w, None)
+    assert int(got[1].max()) >= 256
+    _assert_exact_parity(got, _jax_megarow(w, None) if against == "megarow"
+                         else w["xla"])
+
+
+def test_int4_cache_retrieval_robust_at_1024_codes(world_1024):
+    """Held to the JAX package's int4 megarow search: here the int4 cache
+    moves the JAX package's own top beam of the first query away from its
+    XLA path's (exact scores 34.75 and 33.65, int4 errors near 1)."""
+    w = world_1024
+    _assert_int4_robust(_port(w, "int4"), _jax_megarow(w, "int4"))
 
 
 def test_unconstrained_search_runs():
