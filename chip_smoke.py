@@ -12,7 +12,8 @@ nonzero and no result line is printed:
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes its path gives it (t5-base widths, B=8, N=1000, L=12, Mc in
      {8, 32}; the staged kernels at every segment size, Mc in {8, 16, 24,
-     32}, with their launch plans): K1-K3 with exact bf16, int8 and int4
+     32}, with their launch plans, and K2 and K2' at the 16x1024 DocIDs'
+     segment sizes 4 and 12 too): K1-K3 with exact bf16, int8 and int4
      rows; the megarow dataflows' bodies (dataflow_checks): K1' (exact
      rows quantized on insert) into int8 and int4 caches at Mc 8 and 32,
      t = 0 and Mc/2, K1'' (kvg through src) in its verbatim int8,
@@ -191,6 +192,9 @@ F32_FLOPS = 67e12                # H100 SXM float32 outside tensor cores
 B, N, L, F, H = 8, 1000, 12, 768, 12
 M, K = 32, 256
 SEGMENTS = (8, 16, 24, 32)       # cache slots of cache_segments=4 at M=32
+# and at M=16 (RIPOR's 16x1024 DocIDs): K2 and K2' run at these too
+SEGMENTS_M16 = (4, 8, 12, 16)
+K2_SEGMENTS = tuple(sorted(set(SEGMENTS) | set(SEGMENTS_M16)))
 N_DOCS = 100_000
 SEED = 0
 
@@ -202,17 +206,33 @@ def check(cond, msg):
 
 def cuda_ms(fn, reps):
     """Mean device time of fn() over reps launches (CUDA events), after
-    one warm-up call."""
+    one warm-up call. A sleep kernel holds the stream while the host queues
+    the launches, so the events time the device alone: a K2 call costs the
+    host ~0.15 ms, more than the kernel takes at the smaller slabs. Where
+    the start event had already run when the last launch was queued (the
+    sleep ended first), it times again under a sleep four times as long,
+    three tries in all; a time the sleep never held (it counts the host's
+    gaps too) is printed as a ``cuda_ms_unheld`` line."""
     import torch
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    cycles = int(reps * 1.2e6)
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        held = not start.query()
+        end.record()
+        torch.cuda.synchronize()
+        if held:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    code = getattr(fn, "__code__", None)
+    print("cuda_ms_unheld", json.dumps({
+        "line": code.co_firstlineno if code else None, "reps": reps}))
     return start.elapsed_time(end) / reps
 
 
@@ -302,9 +322,10 @@ def ptxas_report(build_dir, kernels):
 
 def megarow_checks(results, g):
     """Phase 2, megarow kernels K1-K3 against their plain versions at the
-    main path's shapes; appends (kernel, case, record) to results."""
+    main path's shapes (K2 at the slots of both DocID geometries); appends
+    (kernel, case, record) to results."""
     import torch
-    for Mc in SEGMENTS:
+    for Mc in K2_SEGMENTS:
         for quant in ("int4", "int8", None):
             n_before = len(results)
             megarow_case(results, f"{quant or 'bf16'} Mc={Mc}", quant, Mc, g,
@@ -447,7 +468,7 @@ def dataflow_checks(results, g):
                           True, True)
         del cache, kvg
         torch.cuda.empty_cache()
-    for Mc in SEGMENTS:
+    for Mc in K2_SEGMENTS:
         for quant in ("int4", "int8"):
             cache = random_rows(quant, (B, N, L, Mc), g)
             step_attention_seq_case(results, f"{quant} Mc={Mc}", quant,
@@ -550,9 +571,9 @@ def step_attention_seq_case(results, tag, quant, cache, Mc, t, g, layer=5,
     against its plain version, with the QFUSE rows for quantized caches
     (bit-equal)."""
     import torch
-    from ripor_tpu_torch.ops import (step_attention_seq,
+    from ripor_tpu_torch.ops import (SCHEDULE_LAUNCHES, step_attention_seq,
                                      step_attention_seq_plain)
-    from ripor_tpu_torch.ops.staging import stage_plan
+    from ripor_tpu_torch.ops.megarow import seq_schedule
     F, H = width
     RW = cache.shape[-1]
     q, kv_new, bias_hist, bias_new = attention_inputs(
@@ -560,7 +581,12 @@ def step_attention_seq_case(results, tag, quant, cache, Mc, t, g, layer=5,
         else None)
     args = (q, kv_new, cache, layer, bias_hist, bias_new, H, quant, mxu)
     name = "step_attention_seq_mxu" if mxu else "step_attention_seq"
+    schedule, plan = seq_schedule(quant, cache.element_size(),
+                                  q.element_size(), Mc, F, H)
+    counted = SCHEDULE_LAUNCHES[f"step_attention_seq.{schedule}"]
     got = step_attention_seq(*args)
+    check(SCHEDULE_LAUNCHES[f"step_attention_seq.{schedule}"] == counted + 1,
+          f"{name} {tag}: not launched under the {schedule} schedule")
     want = step_attention_seq_plain(*args)
     torch.cuda.synchronize()
     if quant:
@@ -569,11 +595,12 @@ def step_attention_seq_case(results, tag, quant, cache, Mc, t, g, layer=5,
     err = (got.float() - want.float()).abs().max().item()
     check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
           f"{name} {tag}: max abs err {err}")
-    plan = stage_plan(quant, cache.element_size(), q.element_size(), Mc, F, H)
     rec = dict(ms=cuda_ms(lambda: step_attention_seq(*args), 20),
                plain_ms=cuda_ms(lambda: step_attention_seq_plain(*args), 3),
-               library_ms=None, max_abs_err=err, stages=plan.stages,
-               chunk_slots=plan.chunk_slots, smem_bytes=plan.smem_bytes)
+               library_ms=None, max_abs_err=err, schedule=schedule,
+               stages=plan.stages,
+               chunk_slots=getattr(plan, "chunk_slots", Mc),
+               smem_bytes=plan.smem_bytes)
     outs = nbytes(got) + (B * N * RW if quant else 0)
     rec["bound_ms"], rec["bound_by"] = bound(
         nbytes(q, kv_new, bias_hist, bias_new) + outs

@@ -4,14 +4,17 @@
     python3 chip_stage_bench.py
 
 Needs one CUDA card. For each stage cap it sets ``ops.staging.MAX_STAGES``
-(the launch plan then picks at most that many stages) and times K2
+and ``HEADS_MAX_STAGES`` (the launch plans then pick at most that many
+stages; K2 on int8/int4 rows takes the per-head schedule's plan) and times K2
 (``step_attention_seq``), K4 (``step_attend_reorder``), K5
 (``step_attention_fused``) and K8 (``step_attention``) at B=8, N=1000,
 t5-base widths with CUDA events, after a check against the plain version
 (f32 within 1e-4, else 2e-2); then one slab no stage holds per kernel
 (slot chunks: t5-3b widths in bf16, K8 at t5-large in f32). Two rounds
-over the caps; prints one line per case and cap with both rounds' (ms,
-agreed) and the plan's (stages, slots a stage holds, shared bytes). The
+over the caps, and K2's per-head plans once more at a cap of three stages
+in two blocks an SM (``HEADS_MAX_BLOCKS`` = 2); prints one line per case
+and cap with both rounds' (ms, agreed) and the plan's (schedule, stages,
+blocks an SM of a per-head plan, slots a stage holds, shared bytes). The
 measurements behind ``ops/staging.py``'s choice of depth.
 """
 import json
@@ -33,6 +36,7 @@ def main():
                                      step_attention_plain,
                                      step_attention_seq,
                                      step_attention_seq_plain)
+    from ripor_tpu_torch.ops.megarow import seq_schedule
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
@@ -52,7 +56,8 @@ def main():
         cases.append((f"K2 {quant or 'bf16'} Mc={Mc} F={F}",
                       lambda a=args: step_attention_seq(*a),
                       want[0] if quant else want, 2e-2,
-                      (quant, cache.element_size(), 2, Mc, F, H), {}))
+                      (quant, cache.element_size(), 2, Mc, F, H),
+                      dict(seq=True)))
     for quant, kvg_q8, Mc, width in (("int4", False, 8, base),
                                      ("int4", False, 32, base),
                                      ("int8", True, 32, base),
@@ -98,20 +103,40 @@ def main():
                       1e-4 if esz == 4 else 2e-2, (None, esz, esz, Mc, F, H),
                       dict(planes=True, new=kernel == "K5")))
     out = {}
+    # (stage cap, the per-head plan's blocks an SM): the last setting takes
+    # a third stage where it leaves two blocks in place of three (int4 rows
+    # at Mc=32)
+    settings = ((1, 3), (2, 3), (3, 3), (3, 2))
     for _ in range(2):
-        for cap in (1, 2, 3):
-            staging.MAX_STAGES = cap
+        for cap, blocks in settings:
+            staging.MAX_STAGES = staging.HEADS_MAX_STAGES = cap
+            staging.HEADS_MAX_BLOCKS = blocks
             for name, run, want, tol, plan_args, plan_kw in cases:
+                if plan_kw.get("seq"):
+                    schedule, plan = seq_schedule(*plan_args)
+                else:
+                    schedule = "core"
+                    plan = staging.stage_plan(*plan_args, **plan_kw)
+                if schedule != "heads" and blocks != 3:
+                    continue
                 got = run()
                 if isinstance(got, tuple):
                     got = got[0]
                 ok = torch.allclose(got.float(), want.float(), rtol=tol,
                                     atol=tol)
-                plan = staging.stage_plan(*plan_args, **plan_kw)
-                rec = out.setdefault(f"{name} cap={cap}", {
-                    "stages": plan.stages, "chunk_slots": plan.chunk_slots,
+                label = f"{name} cap={cap}" + (
+                    f" blocks={blocks}" if blocks != 3 else "")
+                rec = out.setdefault(label, {
+                    "schedule": schedule, "stages": plan.stages,
+                    # blocks an SM holds at this plan's shared memory
+                    "blocks": (min(3, staging.SM_SMEM // (
+                        plan.smem_bytes + staging.BLOCK_RESERVED))
+                        if schedule == "heads" else None),
+                    "chunk_slots": getattr(plan, "chunk_slots",
+                                           plan_args[3]),
                     "smem_bytes": plan.smem_bytes, "runs": []})
                 rec["runs"].append((cs.cuda_ms(run, 20), ok))
+    staging.HEADS_MAX_BLOCKS = 3
     for k, v in out.items():
         print(k, json.dumps(v))
     return 0 if all(ok for v in out.values() for _, ok in v["runs"]) else 1

@@ -28,13 +28,18 @@
 // planes of T: one beam's K plane [Mc, F] and V plane [Mc, F], each
 // contiguous.
 //
-// Schedule. A persistent block (kThreads) walks beams blockIdx.x,
-// += gridDim.x. Its last warp is the producer: one lane copies each
-// beam's slab (its Mc rows, or both planes) and its q and kv_new rows into
-// a ring of ``stages`` shared-memory stages with cp.async.bulk, completing
-// on the stage's full mbarrier; the copies of the next beams are in flight
-// while the eight consumer warps work on this one. Consumers release a
-// stage on its empty mbarrier (one arrival per warp).
+// Schedule. This core is one of K2's two consumer schedules, and the only
+// one of K4, K5 and K8. K2 takes it for exact bf16 or f32 rows, f32 q, head
+// widths of no 16-byte multiple and slabs no stage holds; quantized rows
+// with bf16 q take step_attention_seq.cu's per-head schedule (one warp a
+// (beam, head), no barrier across the block), which this header's ring
+// primitives serve too. A persistent block (kThreads) walks beams
+// blockIdx.x, += gridDim.x. Its last warp is the producer: one lane copies
+// each beam's slab (its Mc rows, or both planes) and its q and kv_new rows
+// into a ring of ``stages`` shared-memory stages with cp.async.bulk,
+// completing on the stage's full mbarrier; the copies of the next beams
+// are in flight while the eight consumer warps work on this one. Consumers
+// release a stage on its empty mbarrier (one arrival per warp).
 //
 // Slot chunks. Where a beam's slab does not fit one stage, ops/staging.py
 // plans chunks of ``mcs`` slots, and each beam takes two passes over its
@@ -47,8 +52,9 @@
 // softmax over all slots: there is no online softmax. A slab that fits is
 // staged whole, once, and both passes read that one stage.
 //
-// Per beam the consumers run four phases, each closed by one named
-// barrier over the consumer warps:
+// Per beam the core's consumers run four phases, each closed by one named
+// barrier over the consumer warps (so a block computes one beam at a time,
+// and the slowest phase's last thread sets the pace):
 //   1. q in the dot dtype, as floats (qs) and, with RB, bf16 pairs (qp),
 //      and the products of position t's key (and of slot t-1's exact key in
 //      K4's quantize mode), column-parallel;
@@ -160,13 +166,15 @@ inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// Blocks of ``fn`` resident on the whole card at ``smem`` bytes, queried
-// once per (kernel, shared-memory size, device) and cached; raises the
-// kernel's dynamic shared-memory limit on first use.
-inline cudaError_t resident_blocks(const void* fn, int smem, int* blocks) {
+// Blocks of ``fn`` resident on the whole card at ``smem`` bytes and
+// ``threads`` a block, queried once per (kernel, shared-memory size,
+// threads, device) and cached; raises the kernel's dynamic shared-memory
+// limit on first use.
+inline cudaError_t resident_blocks(const void* fn, int smem, int* blocks,
+                                   int threads = kThreads) {
   struct Entry {
     const void* fn;
-    int smem, dev, blocks;
+    int smem, threads, dev, blocks;
   };
   static Entry cache[64];
   static int n = 0;
@@ -174,7 +182,8 @@ inline cudaError_t resident_blocks(const void* fn, int smem, int* blocks) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   for (int i = 0; i < n; ++i)
-    if (cache[i].fn == fn && cache[i].smem == smem && cache[i].dev == dev) {
+    if (cache[i].fn == fn && cache[i].smem == smem &&
+        cache[i].threads == threads && cache[i].dev == dev) {
       *blocks = cache[i].blocks;
       return cudaSuccess;
     }
@@ -182,14 +191,14 @@ inline cudaError_t resident_blocks(const void* fn, int smem, int* blocks) {
                              kSmemLimit);
   if (err != cudaSuccess) return err;
   int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
                                                       smem);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   *blocks = per_sm * sms;
-  if (n < 64) cache[n++] = Entry{fn, smem, dev, *blocks};
+  if (n < 64) cache[n++] = Entry{fn, smem, threads, dev, *blocks};
   return cudaSuccess;
 }
 

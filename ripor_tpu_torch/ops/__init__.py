@@ -2,7 +2,8 @@
 sm_90a (sources in ripor_tpu_torch/csrc/) with its plain PyTorch version
 beside it. A wrapper runs the plain version only for CPU tensors; for a
 CUDA tensor it launches the kernel or raises. ``KERNEL_LAUNCHES`` counts
-kernel launches per kernel body.
+kernel launches per kernel body, ``SCHEDULE_LAUNCHES`` K2's launches by
+consumer schedule.
 
   megarow path:            K1 reorder_cache_all, K2 step_attention_seq,
                            K3 beam_gather_rows; its dataflows' bodies
@@ -15,7 +16,7 @@ kernel launches per kernel body.
 reorder_cache_pallas reorders a sequence or dict of [B, N, ...] tensors
 with one K3 launch.
 """
-from ripor_tpu_torch.ops._build import KERNEL_LAUNCHES
+from ripor_tpu_torch.ops._build import KERNEL_LAUNCHES, SCHEDULE_LAUNCHES
 from ripor_tpu_torch.ops.attend_reorder import (
     SCALE_COLS,
     quantize_rows_int4_plain,
@@ -46,8 +47,9 @@ from ripor_tpu_torch.ops.step_attention import (
 )
 
 __all__ = [
-    "KERNEL_LAUNCHES", "SCALE_COLS", "quantize_rows_plain",
-    "quantize_rows_int4_plain", "beam_gather_rows", "beam_gather_rows_plain",
+    "KERNEL_LAUNCHES", "SCHEDULE_LAUNCHES", "SCALE_COLS",
+    "quantize_rows_plain", "quantize_rows_int4_plain", "beam_gather_rows",
+    "beam_gather_rows_plain",
     "beam_gather_update", "beam_gather_update_plain", "reorder_cache_all",
     "reorder_cache_all_plain", "step_attention_seq",
     "step_attention_seq_plain", "step_attend_reorder",

@@ -49,6 +49,15 @@ KERNEL_LAUNCHES: Dict[str, int] = {
     "beam_gather_blocks": 0,
 }
 
+# K2's launches (K2' included) by the consumer schedule that ran them:
+# "heads" (one warp a (beam, head): int8/int4 rows, bf16 q, whole slabs)
+# or "core" (attend_staged.cuh's Core). Apart from KERNEL_LAUNCHES, whose
+# keys are the kernel bodies a search's launch plan counts.
+SCHEDULE_LAUNCHES: Dict[str, int] = {
+    "step_attention_seq.heads": 0,
+    "step_attention_seq.core": 0,
+}
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 BUILD_INFO: Dict[str, object] = {}

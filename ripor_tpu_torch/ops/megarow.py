@@ -23,7 +23,11 @@ per-step reorder moves one slab per beam.
   rows the next step's K1 inserts). ``mxu_math`` (K2', the reference's
   RIPOR_MR_MXU math) keeps the bf16 rounding of each k*q product on
   int8/int4 rows but forms the p*v products exactly in f32. Each beam's
-  layer slab is staged in shared memory; ops/staging.py plans the stages.
+  layer slab is staged in shared memory. Two consumer schedules, chosen
+  from the shapes and dtypes alone (``seq_schedule``): int8/int4 rows with
+  bf16 q, D a multiple of 16 and a slab one stage holds take the per-head
+  schedule (one warp a (beam, head); ops/staging.py ``heads_plan``); every
+  other case the staged core (``stage_plan``).
 
 The TPU kernels' tuning knobs (chunk, layer group, descriptor width, VMEM
 budgets, beam padding) have no counterpart here: they served the TPU's
@@ -35,13 +39,13 @@ from typing import Optional
 
 import torch
 
-from ripor_tpu_torch.ops._build import (check_launch, device_kind,
-                                        kernel_fn, require,
+from ripor_tpu_torch.ops._build import (SCHEDULE_LAUNCHES, check_launch,
+                                        device_kind, kernel_fn, require,
                                         require_disjoint)
 from ripor_tpu_torch.ops.attend_reorder import (
     KIND_CODE, SCALE_COLS, attend_plain, cache_quant, decode_rows,
     quantize_rows_int4_plain, quantize_rows_plain, row_width)
-from ripor_tpu_torch.ops.staging import stage_plan
+from ripor_tpu_torch.ops.staging import heads_plan, stage_plan
 
 
 # ---------------------------------------------------------------------------
@@ -222,6 +226,17 @@ def step_attention_seq_plain(q, kv_new, cache, layer: int, bias_hist,
     return out
 
 
+def seq_schedule(quant: Optional[str], cache_esz: int, q_esz: int, Mc: int,
+                 F: int, H: int):
+    """K2's schedule on a card and its plan: ("heads", HeadsPlan) for
+    int8/int4 rows with bf16 q, D a multiple of 16 and a slab one stage
+    holds; else ("core", StagePlan)."""
+    plan = heads_plan(quant, q_esz, Mc, F, H)
+    if plan is not None:
+        return "heads", plan
+    return "core", stage_plan(quant, cache_esz, q_esz, Mc, F, H)
+
+
 def step_attention_seq(q: torch.Tensor, kv_new: torch.Tensor,
                        cache: torch.Tensor, layer: int,
                        bias_hist: torch.Tensor, bias_new: torch.Tensor,
@@ -260,8 +275,8 @@ def step_attention_seq(q: torch.Tensor, kv_new: torch.Tensor,
     require(all(x.is_contiguous() for x in
                 (q, kv_new, cache, bias_hist, bias_new)),
             "step_attention_seq needs contiguous tensors")
-    plan = stage_plan(quant, cache.element_size(), q.element_size(), Mc, F,
-                      num_heads)
+    schedule, plan = seq_schedule(quant, cache.element_size(),
+                                  q.element_size(), Mc, F, num_heads)
     if out is None:
         attn = torch.empty_like(q)
         kvq = (torch.empty(B, N, RW, dtype=torch.int8, device=q.device)
@@ -270,15 +285,24 @@ def step_attention_seq(q: torch.Tensor, kv_new: torch.Tensor,
         attn, kvq = out
     else:
         attn, kvq = out, None
-    fn = kernel_fn("step_attention_seq", "step_attention_seq", 7, 14)
+    ptrs = (q.data_ptr(), kv_new.data_ptr(), cache.data_ptr(),
+            bias_hist.data_ptr(), bias_new.data_ptr(), attn.data_ptr(),
+            kvq.data_ptr() if kvq is not None else None)
     with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), kv_new.data_ptr(), cache.data_ptr(),
-                bias_hist.data_ptr(), bias_new.data_ptr(), attn.data_ptr(),
-                kvq.data_ptr() if kvq is not None else None,
-                B * N, L, Mc, F, num_heads, RW, layer, KIND_CODE[quant],
-                int(q.dtype == torch.float32), int(kvq is not None),
-                plan.chunk_slots, plan.stages, plan.smem_bytes, int(mxu),
-                torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if schedule == "heads":
+            fn = kernel_fn("step_attention_seq", "step_attention_seq_heads",
+                           7, 13)
+            rc = fn(*ptrs, B * N, L, Mc, F, num_heads, RW, layer,
+                    KIND_CODE[quant], int(kvq is not None), plan.warps,
+                    plan.stages, plan.smem_bytes, int(mxu), stream)
+        else:
+            fn = kernel_fn("step_attention_seq", "step_attention_seq", 7, 14)
+            rc = fn(*ptrs, B * N, L, Mc, F, num_heads, RW, layer,
+                    KIND_CODE[quant], int(q.dtype == torch.float32),
+                    int(kvq is not None), plan.chunk_slots, plan.stages,
+                    plan.smem_bytes, int(mxu), stream)
     check_launch(rc, "step_attention_seq_mxu" if mxu
                  else "step_attention_seq")
+    SCHEDULE_LAUNCHES[f"step_attention_seq.{schedule}"] += 1
     return (attn, kvq) if emit_quant else attn

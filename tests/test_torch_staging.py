@@ -277,3 +277,134 @@ def test_cpu_tensors_take_the_plain_version(quant):
     assert torch.isfinite(attn).all()
     assert torch.equal(dst[1, :, :, :4], merged[1][:, src[0].long()][:, :, :4])
     assert KERNEL_LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# K2's per-head schedule (staging.heads_plan): int8/int4 rows, bf16 q, D a
+# multiple of 16, each slab staged whole
+# ---------------------------------------------------------------------------
+
+def _heads_expected(quant, Mc, F, H):
+    """csrc/step_attention_seq.cu make_heads_layout, written out: the
+    per-block bytes (8 barrier pairs, biases, each warp's word a slot and
+    its head's q pairs) and one stage's (rows at an odd number of 16-byte
+    chunks, q, kv_new)."""
+    D = F // H
+    rw = {"int8": 2 * F, "int4": F}[quant] + 128
+    stride = rw if rw // 16 % 2 else rw + 16
+    warps = -(-H // -(-H // 12))
+    fixed = 128 + _a16((Mc + 1) * H * 4) + warps * (_a16(4 * Mc) + 2 * D)
+    return warps, stride, fixed, _a16(Mc * stride) + 2 * F + 4 * F
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+@pytest.mark.parametrize("Mc", [1, 4, 8, 12, 16, 24, 32, 40])
+@pytest.mark.parametrize("width", list(WIDTHS))
+def test_heads_plan_layout(width, quant, Mc):
+    """The plan's bytes are its layout's: fixed bytes and stages sum to its
+    shared memory, which fits a block; no other depth holds more beams an
+    SM (three a block at most), or as many with two stages a block where
+    the plan has one, or in more blocks, or in as many blocks with more
+    stages."""
+    F, H = WIDTHS[width]
+    plan = staging.heads_plan(quant, 2, Mc, F, H)
+    warps, stride, fixed, stage = _heads_expected(quant, Mc, F, H)
+    if fixed + stage > SMEM_LIMIT:
+        assert plan is None
+        return
+    assert (plan.warps, plan.row_stride) == (warps, stride)
+    assert (plan.fixed_bytes, plan.stage_bytes) == (fixed, stage)
+    assert plan.smem_bytes == plan.fixed_bytes + plan.stages * plan.stage_bytes
+    assert plan.smem_bytes <= SMEM_LIMIT
+    assert 1 <= plan.stages <= staging.HEADS_MAX_STAGES
+    assert plan.row_stride % 32 == 16      # eight rows, eight bank groups
+    blocks = min(staging.HEADS_MAX_BLOCKS,
+                 staging.SM_SMEM // (plan.smem_bytes + staging.BLOCK_RESERVED))
+    assert plan.blocks == blocks >= 1
+    for s in range(1, staging.HEADS_MAX_STAGES + 1):
+        smem = fixed + s * stage
+        if smem <= SMEM_LIMIT:
+            b = min(staging.HEADS_MAX_BLOCKS,
+                    staging.SM_SMEM // (smem + staging.BLOCK_RESERVED))
+            assert (b * min(s, 3), min(s, 2), b, s) <= (
+                blocks * min(plan.stages, 3), min(plan.stages, 2), blocks,
+                plan.stages)
+
+
+@pytest.mark.parametrize("Mc", range(1, 33))
+def test_heads_plan_rings_t5_base_int4(Mc):
+    """At t5-base with int4 rows every segment size keeps six or more beams
+    staged an SM, two or more a block, in three blocks (the staged core
+    held one stage in each of three blocks at Mc = 32)."""
+    plan = staging.heads_plan("int4", 2, Mc, 768, 12)
+    assert plan.blocks == 3 and plan.stages >= 2
+    assert plan.blocks * plan.stages >= 6
+    assert plan.smem_bytes <= SMEM_LIMIT
+
+
+def test_heads_plan_pinned():
+    """t5-base, Mc = 32: int4 rows of 896 bytes at a 912-byte stride, 12
+    warps, two 33,792-byte stages in each of three blocks; int8 rows three
+    58,368-byte stages in one block (rather than one in each of three)."""
+    fixed = 128 + 1584 + 12 * (128 + 128)
+    plan = staging.heads_plan("int4", 2, 32, 768, 12)
+    assert plan == staging.HeadsPlan(12, 2, 33_792, fixed,
+                                     fixed + 2 * 33_792, 912, 3)
+    plan = staging.heads_plan("int8", 2, 32, 768, 12)
+    assert (plan.stages, plan.stage_bytes, plan.blocks) == (3, 58_368, 1)
+
+
+@pytest.mark.parametrize("args,why", [
+    ((None, 2, 32, 768, 12), "exact rows"),
+    (("int4", 4, 32, 768, 12), "f32 q"),
+    (("int4", 2, 8, 48, 2), "D = 24"),
+    (("int4", 2, 8, 40, 2), "D = 20"),
+    (("int4", 2, 8, 512, 2), "D = 256"),
+    (("int8", 2, 32, 4096, 32), "a slab no stage holds"),
+])
+def test_heads_plan_declines(args, why):
+    assert staging.heads_plan(*args) is None, why
+
+
+@pytest.mark.parametrize("H,warps", [(1, 1), (2, 2), (4, 4), (12, 12),
+                                     (16, 8), (20, 10), (32, 11)])
+def test_heads_warps(H, warps):
+    assert staging.heads_warps(H) == warps
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+@pytest.mark.parametrize("Mc", SEGMENTS_T5 + (4, 12))
+def test_seq_schedule_choice(kind, Mc):
+    """K2 takes the per-head schedule for int8/int4 rows with bf16 q, and
+    stage_plan's plan, as it stands, for exact rows and f32 q."""
+    from ripor_tpu_torch.ops.megarow import seq_schedule
+    quant, cesz, qesz = KINDS[kind]
+    schedule, plan = seq_schedule(quant, cesz, qesz, Mc, 768, 12)
+    if quant is not None and qesz == 2:
+        assert schedule == "heads"
+        assert plan == staging.heads_plan(quant, qesz, Mc, 768, 12)
+    else:
+        assert schedule == "core"
+        assert plan == stage_plan(quant, cesz, qesz, Mc, 768, 12)
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_cpu_tensors_count_no_schedule(quant):
+    """On the CPU the plain version runs under either schedule's shapes,
+    and no schedule counter moves."""
+    from ripor_tpu_torch.ops import SCHEDULE_LAUNCHES
+    rng = np.random.default_rng(1)
+    Bq, Nq, L, Mc, H, D = 1, 3, 2, 8, 4, 16
+    F = H * D
+    q = torch.from_numpy(rng.standard_normal((Bq, Nq, F)).astype(
+        np.float32)).bfloat16()
+    kv_new = torch.from_numpy(rng.standard_normal(
+        (Bq, Nq, 2 * F)).astype(np.float32)).bfloat16()
+    cache = _rows(quant, (Bq, Nq, L, Mc), F, H, rng)
+    assert staging.heads_plan(quant, 2, Mc, F, H) is not None
+    before = dict(SCHEDULE_LAUNCHES)
+    attn, kvq = step_attention_seq(q, kv_new, cache, 1, torch.zeros(Mc, H),
+                                   torch.zeros(1, H), H, quant)
+    assert attn.dtype == torch.bfloat16 and torch.isfinite(attn.float()).all()
+    assert kvq.shape == (Bq, Nq, cache.shape[-1])
+    assert SCHEDULE_LAUNCHES == before
